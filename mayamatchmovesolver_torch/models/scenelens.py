@@ -40,6 +40,8 @@ _MODEL_FIELDS = {
     name: tuple((f.name, f.default) for f in dataclasses.fields(cls))
     for name, cls in _MODEL_CLASSES.items()
 }
+# name -> the model at its neutral parameters (plain floats).
+_MODEL_DEFAULTS = {name: cls() for name, cls in _MODEL_CLASSES.items()}
 # param slots: model params then pixel_aspect in the last slot.
 MAX_LENS_PARAMS = 1 + max(len(f) for f in _MODEL_FIELDS.values())
 
@@ -139,6 +141,11 @@ def _film_back_for_camera(scene, attrs, cam_index, frame_indices,
     )
 
 
+def _build_model(model_type, values):
+    """The model of `model_type` with its parameters in field order."""
+    return _MODEL_CLASSES[model_type](*values)
+
+
 def _layer_model_and_filmback(scene_lens, scene, attrs, frame_indices,
                               ci, li, model_type):
     """Materialize one layer's model + film back from the attr block."""
@@ -150,7 +157,7 @@ def _layer_model_and_filmback(scene_lens, scene, attrs, frame_indices,
     pa = gather_attr_values(attrs, pa_code[None], frame_indices)[0]
     # ATTR_NONE pixel aspect gathers to 0 -> default 1.0.
     pa = torch.where(pa_code < 0, 1.0, pa)
-    model = _MODEL_CLASSES[model_type](*(pv[i] for i in range(n_params)))
+    model = _build_model(model_type, [pv[i] for i in range(n_params)])
     fb = _film_back_for_camera(scene, attrs, ci, frame_indices, pa)
     return model, fb
 

@@ -203,7 +203,6 @@ def test_refusal_string_matches(lens_focal):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("solver_type", t_registry.SOLVER_TYPE_BA_SCHUR, "item 9"),
     ("solver_type", t_registry.SOLVER_TYPE_LM_SHARDED, "item 14"),
     ("solver_type", t_registry.SOLVER_TYPE_BA_SHARDED, "item 14"),
     ("iteration_callback", print, "item 8"),
@@ -221,6 +220,6 @@ def test_solve_refuses_unported_options(lens_focal, option, value, match):
 
 def test_solve_refuses_unported_default_solver(lens_focal, monkeypatch):
     _, (scene, attrs, lens, sa, _) = lens_focal
-    monkeypatch.setenv(t_registry.DEFAULT_SOLVER_ENV_VAR, "ba_schur")
-    with pytest.raises(NotImplementedError, match="ba_schur"):
+    monkeypatch.setenv(t_registry.DEFAULT_SOLVER_ENV_VAR, "ba_schur_sharded")
+    with pytest.raises(NotImplementedError, match="ba_schur_sharded"):
         t_solve.solve(scene, attrs, [0], sa, lens=lens)
