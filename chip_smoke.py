@@ -13,7 +13,16 @@ and checks what comes out:
   * phase 8: the Schur BA at production scale (1024 frames x 2048
     bundles, focal and distortion in the border) with both Jacobian
     assemblies: agreement, time per iteration, memory, a profiled
-    iteration, and the export of the solved lens.
+    iteration, and the export of the solved lens;
+  * phase 9: the shot's camera solved frame by frame with the bundles
+    known, through solve_per_frame: all frames at once under the batched
+    LM, then the first frames in order with the Kalman warm start;
+  * phase 10: the dense and the BA solve with host hooks (progress
+    callback, interruption) and a checkpoint written at the
+    interruption, loaded and resumed to the uninterrupted solve's end;
+  * phase 11: a two-layer lens file written, parsed and attached; its
+    stack exported as ST maps (first layer through the kernel) and an
+    HD image warped through the maps.
 
 Needs one CUDA device; it fails (non-zero exit, no result line) without
 one, when the build or a launch fails, or when any check misses.  It
@@ -27,6 +36,7 @@ the line before it names the card and its power limit, the one before
 that is the kernel table as JSON.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -75,6 +85,61 @@ PROD_FOCAL_TOL_MM, PROD_DISTORTION_TOL, PROD_MIN_COST_REDUCTION = (
 # The two assemblies' normal blocks, float32: every field within this
 # share of its largest entry (1e-6 measured on a CPU at 256x512).
 BLOCKS_RTOL = 1e-4
+
+# Phase 9: the per-frame camera solve starts every frame CAMERA_OFFSET
+# plus seeded noise off the truth (translations in scene units,
+# rotations in degrees), and must come back within the tolerances: the
+# lens and the bundles are exact, so what is left is float32 round-off
+# of a 6-parameter pose from 64 points (2.4e-6 and 4.7e-6 degrees on a
+# CPU over the first 24 frames).
+PERFRAME_NOISE = dict(translate=0.02, rotate=0.1)
+PERFRAME_TRANSLATE_TOL, PERFRAME_ROTATE_TOL_DEG = 2e-4, 2e-4
+SEQUENTIAL_FRAMES = 24
+# Phase 11: the second layer of the lens file, on top of the shot's
+# classic lens.
+STACK_RADIAL = dict(degree2_distortion=0.01, degree2_u=0.002,
+                    degree4_distortion=-0.003, cylindric_direction=10.0,
+                    cylindric_bending=0.01)
+
+# Phase 10: a hooked or resumed solve runs the same iteration body the
+# same number of times as the plain one, so the iterations and the stop
+# reason are equal and the solved parameters agree within this share of
+# the largest: a few hundred float32 ulps for the card's unordered block
+# sums, far under what a resume from a wrong state (damping reset, an
+# iteration lost) would leave.
+HOOKED_RTOL = 1e-5
+# The image warped through the identity map, see phase_stack_and_warp.
+IDENTITY_WARP_TOL = 1e-3
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet), for the bound.
+H100_FP32_FLOPS = 67e12
+H100_HBM_BYTES_PER_S = 3.35e12
+# Floating-point operations per pixel, an FMA counted as two.  NEEDED is
+# the least arithmetic that computes the function, and is what the bound
+# is made of: the pixel-to-core map is affine in (col, row) once the
+# host folds the pixel-to-dn scaling into m_in (2 FMAs per axis, 8), and
+# so is the core-to-unit map with m_out (8); the classic core is
+# x*(1 + cxx*x2 + cxy*y2 + q*r4) with r4 = (x2 + y2)^2 (4 products and
+# sums, then 7 per axis: 18); the radial core needs x2, y2, xy, r2, r4
+# (5), the radial factor (4), u and v (4), 2xy (1), and 7 per axis (28);
+# the anamorphic core is a polynomial in r2, d = x2 - y2, r4, d*r2 and
+# d^2 with coefficients folded on the host, since cos2*r2 = d and
+# cos4*r4 = 2*d^2 - r4, so it needs no division (7 terms, 5 FMAs per
+# axis, 2 products: 29).  EXECUTED is what csrc/stmap.cu does as it is
+# written (divisions by constants in the frame, x4 + 2*x2*y2 + y4 in the
+# classic core, an IEEE division in the anamorphic one, each counted as
+# one operation); the script prints the kernel's share of that time too,
+# so the gap between the two reads as arithmetic the kernel could shed.
+# For distort both add the fixed point's start (4) and, per iteration,
+# one more core evaluation and the update (4).
+STMAP_FRAME_FLOPS_NEEDED = 16
+STMAP_CORE_FLOPS_NEEDED = {"TdeClassic": 18, "TdeRadialStdDeg4": 28,
+                           "TdeAnamorphicStdDeg4": 29,
+                           "TdeAnamorphicStdDeg4Rescaled": 29}
+STMAP_FRAME_FLOPS_EXECUTED = 34
+STMAP_CORE_FLOPS_EXECUTED = {"TdeClassic": 29, "TdeRadialStdDeg4": 29,
+                             "TdeAnamorphicStdDeg4": 36,
+                             "TdeAnamorphicStdDeg4Rescaled": 36}
 
 STMAP_SOURCE = "mayamatchmovesolver_torch/csrc/stmap.cu"
 STMAP_REPLACES = "mayamatchmovesolver_tpu/ops/stmap.py:197"
@@ -126,14 +191,15 @@ def shot(frames=FRAMES, bundles=BUNDLES, seed=7):
 
 
 def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
-                         solve_bundles=False):
+                         solve_bundles=False, per_frame=False):
     """Scene, perturbed attributes, lens and solve attributes on `device`,
     float32, with marker tracks made by the port's own evaluate + lens
     distortion; with solve_bundles the bundle positions are solved too
-    (not moved off the truth).  Returns (scene, attrs, lens, solve_attrs,
-    codes)."""
-    import dataclasses
-
+    (not moved off the truth).  With per_frame only the six camera
+    channels are solved: the focal length and the distortion stay at the
+    truth and every frame gets seeded noise on top of CAMERA_OFFSET.
+    Returns (scene, attrs, lens, solve_attrs, codes); codes["camera"]
+    maps each camera channel to its row of anim_values."""
     from mayamatchmovesolver_torch.core.constants import FilmFit
     from mayamatchmovesolver_torch.models import scenelens
     from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
@@ -164,16 +230,26 @@ def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
     attrs = set_marker_screen_positions(scene, attrs, fi, tracks)
 
     codes = dict(focal=cam.attr("focal_length_mm").code // 2,
-                 distortion=cam.attr("lens_distortion").code // 2)
+                 distortion=cam.attr("lens_distortion").code // 2,
+                 camera={ch: cam.attr(ch).code // 2 for ch in CAMERA_OFFSET})
     static = attrs.static_values.clone()
     anim = attrs.anim_values.clone()
+    noise = np.random.RandomState(11)
     for ch, delta in CAMERA_OFFSET.items():
-        anim[cam.attr(ch).code // 2] += delta
-    static[codes["focal"]] += FOCAL_OFFSET
-    static[codes["distortion"]] += DISTORTION_OFFSET
+        anim[codes["camera"][ch]] += delta
+        if per_frame:
+            sigma = PERFRAME_NOISE["translate" if ch[0] == "t" else "rotate"]
+            anim[codes["camera"][ch]] += torch.as_tensor(
+                noise.normal(0.0, sigma, frames), dtype=anim.dtype,
+                device=device)
+    if not per_frame:
+        static[codes["focal"]] += FOCAL_OFFSET
+        static[codes["distortion"]] += DISTORTION_OFFSET
     attrs = dataclasses.replace(attrs, static_values=static,
                                 anim_values=anim)
     solve_attrs = [cam.attr(ch) for ch in CAMERA_OFFSET]
+    if per_frame:
+        return scene, attrs, lens, solve_attrs, codes
     solve_attrs += [cam.attr("focal_length_mm"), cam.attr("lens_distortion")]
     if solve_bundles:
         solve_attrs += [b.attr(ch) for b in bnds for ch in ("tx", "ty", "tz")]
@@ -181,25 +257,48 @@ def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
 
 
 def solve_shot(device, frames=FRAMES, bundles=BUNDLES, schur=False,
-               ba_linear_solver=None):
+               ba_linear_solver=None, **hooks):
     """The solve of the shot on `device`: dense, or with schur=True the
-    Schur BA with the bundles free.  Returns (attrs_out, result, codes,
-    problem size)."""
+    Schur BA with the bundles free; `hooks` are further SolverOptions
+    (iteration_callback, interrupt_check, callback_interval, ...).
+    Returns (attrs_out, result, codes, problem size)."""
     from mayamatchmovesolver_torch.solver import SolverOptions, registry, solve
 
     scene, attrs, lens, solve_attrs, codes = build_problem_inputs(
         device, frames, bundles, solve_bundles=schur)
-    options = SolverOptions(image_width=float(HD[0]))
+    options = SolverOptions(image_width=float(HD[0]), **hooks)
     if schur:
         options = SolverOptions(
             image_width=float(HD[0]),
             solver_type=registry.SOLVER_TYPE_BA_SCHUR,
-            ba_linear_solver=ba_linear_solver)
+            ba_linear_solver=ba_linear_solver, **hooks)
     attrs_out, result = solve(scene, attrs, np.arange(frames), solve_attrs,
                               options, lens=lens)
     size = dict(parameters=len(result.solved_parameters),
                 residuals=scene.num_markers * frames * 2)
     return attrs_out, result, codes, size
+
+
+def solve_shot_per_frame(device, frames=FRAMES, bundles=BUNDLES,
+                         sequential=False):
+    """The shot's camera solved frame by frame on `device`, bundles and
+    lens known: all `frames` at once, or with sequential=True in order
+    with the Kalman warm start.  Returns (attrs_out, result, the largest
+    translation error, the largest rotation error in degrees)."""
+    from mayamatchmovesolver_torch.solver import SolverOptions, solve_per_frame
+
+    scene, attrs, lens, solve_attrs, codes = build_problem_inputs(
+        device, frames, bundles, per_frame=True)
+    attrs_out, result = solve_per_frame(
+        scene, attrs, np.arange(frames), solve_attrs,
+        SolverOptions(image_width=float(HD[0])), lens=lens,
+        sequential=sequential)
+    truth, _ = shot(frames, bundles)
+    worst = dict(t=0.0, r=0.0)
+    for ch, row in codes["camera"].items():
+        err = attrs_out.anim_values[row].cpu().numpy() - truth[ch]
+        worst[ch[0]] = max(worst[ch[0]], float(np.abs(err).max()))
+    return attrs_out, result, worst["t"], worst["r"]
 
 
 def export_stmaps(distortion, device):
@@ -261,6 +360,40 @@ def _raw_launch(model, fb, width, height, direction, device):
     return launch
 
 
+def stmap_flops(model_name, direction, frame, cores):
+    """Floating-point operations per pixel from a frame count and a
+    table of core counts."""
+    from mayamatchmovesolver_torch.models.base import (
+        DISTORT_INVERSE_ITERATIONS,
+    )
+
+    core = cores[model_name]
+    flops = frame + core
+    if direction == "distort":
+        flops += 4 + DISTORT_INVERSE_ITERATIONS * (core + 4)
+    return flops
+
+
+def stmap_bound(model_name, direction, width, height):
+    """(bound_ms, bound_by, executed_ms): the least time one H100 could
+    take for this map, the larger of its bytes (one 16-byte texel written
+    per pixel, nothing read) over the memory rate and the floating-point
+    operations the function needs over the float32 rate; and the same
+    with the operations the kernel executes as written."""
+    pixels = width * height
+    bytes_ms = pixels * 16 / H100_HBM_BYTES_PER_S * 1e3
+    needed_ms, executed_ms = (
+        pixels * stmap_flops(model_name, direction, frame, cores)
+        / H100_FP32_FLOPS * 1e3
+        for frame, cores in (
+            (STMAP_FRAME_FLOPS_NEEDED, STMAP_CORE_FLOPS_NEEDED),
+            (STMAP_FRAME_FLOPS_EXECUTED, STMAP_CORE_FLOPS_EXECUTED)))
+    executed_ms = max(bytes_ms, executed_ms)
+    if bytes_ms >= needed_ms:
+        return bytes_ms, "bytes", executed_ms
+    return needed_ms, "operations", executed_ms
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -318,10 +451,18 @@ def phase_kernel_vs_plain(device):
                         model, fb, w, h, direction, device=device))
                     plain_ms = _cuda_ms(lambda: stmap_mod.stmap_torch(
                         model, fb, w, h, direction, device=device))
+                    bound_ms, bound_by, executed_ms = stmap_bound(
+                        name, direction, w, h)
                     line += ("  kernel %.4f ms  wrapper call %.4f ms  plain "
-                             "%.4f ms" % (ms, call_ms, plain_ms))
+                             "%.4f ms  bound %.4f ms by %s (%.0f%% of it; "
+                             "%.0f%% of %.4f ms for the operations as "
+                             "written)" % (
+                                 ms, call_ms, plain_ms, bound_ms, bound_by,
+                                 100.0 * bound_ms / ms,
+                                 100.0 * executed_ms / ms, executed_ms))
                     if (name, direction) == ("TdeClassic", "distort"):
-                        timing = (ms, plain_ms)
+                        timing = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
                 print(line)
                 if not diff <= TOL:
                     raise AssertionError(
@@ -595,6 +736,372 @@ def phase_production(device):
     return solved
 
 
+def phase_per_frame(device):
+    """The shot's camera frame by frame: all 120 frames under the batched
+    LM (first and warm), a profiled batched iteration, then the first
+    frames in order with the Kalman warm start."""
+    from mayamatchmovesolver_torch.solver import lm, problem
+    from mayamatchmovesolver_torch.solver.solve import (
+        SolverOptions,
+        _lm_config,
+        build_problem,
+    )
+
+    def check(tag, result, frames, translate, rotate):
+        stops = sorted(set(result.per_frame_stop_reason))
+        print("%s %d frames: success=%d stop reasons %s, %d reverted, %d "
+              "iterations (most of any frame), %d function / %d Jacobian "
+              "evaluations; error %.6g -> %.6g px; camera within %.3g units "
+              "and %.3g degrees of the truth" % (
+                  tag, frames, result.success, stops,
+                  sum(result.per_frame_reverted), result.iterations,
+                  result.function_evals, result.jacobian_evals,
+                  result.error_initial, result.error_final, translate,
+                  rotate))
+        if (len(result.per_frame_stop_reason) != frames
+                or not all(s in (1, 2, 3, 4)
+                           for s in result.per_frame_stop_reason)
+                or any(result.per_frame_reverted) or not result.success
+                or not result.error_final <= ERROR_FINAL_TOL_PX
+                or not translate <= PERFRAME_TRANSLATE_TOL
+                or not rotate <= PERFRAME_ROTATE_TOL_DEG):
+            raise AssertionError("%s missed its thresholds" % tag)
+
+    tag = "[9 per-frame]"
+    t0 = time.perf_counter()
+    _, result, translate, rotate = solve_shot_per_frame(device)
+    first = time.perf_counter() - t0
+    check(tag, result, FRAMES, translate, rotate)
+    t0 = time.perf_counter()
+    _, warm, translate, rotate = solve_shot_per_frame(device)
+    warm_wall = time.perf_counter() - t0
+    check(tag + " again", warm, FRAMES, translate, rotate)
+    print("%s %d problems of 6 parameters and %d residuals: first solve "
+          "%.3f s (%.3f s with scene set-up), warm %.3f s (%.3f s) = %.4f s "
+          "per batched LM iteration" % (
+              tag, FRAMES, 2 * BUNDLES, result.timer.solve_seconds, first,
+              warm.timer.solve_seconds, warm_wall,
+              warm.timer.solve_seconds / warm.iterations))
+
+    scene, attrs, lens, solve_attrs, _ = build_problem_inputs(
+        device, per_frame=True)
+    options = SolverOptions(image_width=float(HD[0]))
+    base = build_problem(scene, attrs, [0], solve_attrs, options, lens=lens)
+    frames_t = torch.arange(FRAMES, device=device)
+    mask = torch.ones((scene.num_markers, FRAMES), dtype=torch.bool,
+                      device=device)
+    fn = problem.per_frame_residual_fn(base, frames_t, mask)
+    config = _lm_config(options)
+    state = lm.lm_init(
+        fn, problem.per_frame_initial_parameters(base, frames_t), config)
+    body = lm._make_body(lm._make_normal_system(fn, "fwd"), config)
+    _profile_iteration(device, "[9 per-frame profile]", body, state)
+
+    tag = "[9 sequential]"
+    t0 = time.perf_counter()
+    _, result, translate, rotate = solve_shot_per_frame(
+        device, frames=SEQUENTIAL_FRAMES, sequential=True)
+    wall = time.perf_counter() - t0
+    check(tag, result, SEQUENTIAL_FRAMES, translate, rotate)
+    print("%s a host loop of %d single-frame solves with the Kalman warm "
+          "start: %.3f s (%.3f s with scene set-up) = %.4f s per frame" % (
+              tag, SEQUENTIAL_FRAMES, result.timer.solve_seconds, wall,
+              result.timer.solve_seconds / SEQUENTIAL_FRAMES))
+    _check_export("[9 export]", DISTORTION, device)
+
+
+def _hooked_solves(tag, device, schur):
+    """solve() with a progress callback every 2 iterations against the
+    plain solve, then interrupted after the first block.  Returns the
+    solved distortion."""
+    kind = dict(schur=schur, ba_linear_solver="cholesky" if schur else None)
+    _, plain, codes, _ = solve_shot(device, **kind)
+    calls = []
+    attrs_out, hooked, _, _ = solve_shot(
+        device, callback_interval=2,
+        iteration_callback=lambda it, cost: calls.append((it, cost)), **kind)
+    its = [it for it, _ in calls]
+    costs = [cost for _, cost in calls]
+    print("%s hooked solve %.3f s (plain %.3f s), %d iterations (plain %d), "
+          "stop %d (plain %d); callback saw iterations %s, cost %.6g -> %.6g"
+          % (tag, hooked.timer.solve_seconds, plain.timer.solve_seconds,
+             hooked.iterations, plain.iterations, hooked.stop_reason,
+             plain.stop_reason, its, costs[0], costs[-1]))
+    if (its != sorted(set(its)) or its[-1] != hooked.iterations
+            or any(b > a for a, b in zip(costs, costs[1:]))
+            or hooked.user_interrupted
+            or hooked.solver_type_name != plain.solver_type_name):
+        raise AssertionError("%s the callback sequence is wrong" % tag)
+    distortion = _check_recovery(tag, attrs_out, hooked, codes)
+    a, b = hooked.solved_parameters, plain.solved_parameters
+    diff = float(np.abs(a - b).max() / np.abs(b).max())
+    print("%s hooked vs plain solved parameters: max|diff| / max|x| %.3g" % (
+        tag, diff))
+    # The blocks change when the host looks, not what is computed: the
+    # same iterations and stop reason, and the parameters within
+    # HOOKED_RTOL (every run on an H100 read exactly 0, on both routes).
+    if (hooked.iterations != plain.iterations
+            or hooked.stop_reason != plain.stop_reason
+            or diff > HOOKED_RTOL):
+        raise AssertionError("%s the hooked solve left the plain one" % tag)
+
+    asked = []
+    _, stopped, _, _ = solve_shot(
+        device, callback_interval=2,
+        interrupt_check=lambda: asked.append(1) or True, **kind)
+    print("%s interrupted after the first block: user_interrupted=%d, %d "
+          "iterations, error %.6g -> %.6g px, reason %r" % (
+              tag, stopped.user_interrupted, stopped.iterations,
+              stopped.error_initial, stopped.error_final,
+              stopped.reason_string))
+    if (not stopped.user_interrupted or stopped.iterations != 2
+            or stopped.iterations >= plain.iterations or len(asked) != 1
+            or not stopped.error_final <= stopped.error_initial):
+        raise AssertionError("%s the interruption went wrong" % tag)
+    return distortion
+
+
+def phase_hooks_and_checkpoints(device):
+    """Host hooks and checkpoints on the dense and the BA route."""
+    import os
+    import tempfile
+
+    from mayamatchmovesolver_torch.solver import (
+        SolverOptions, ba, ba_bridge, checkpoint, lm, problem)
+    from mayamatchmovesolver_torch.solver.solve import (
+        _lm_config,
+        build_problem,
+    )
+
+    options = SolverOptions(image_width=float(HD[0]))
+    with tempfile.TemporaryDirectory() as folder:
+        tag = "[10 dense]"
+        distortion = _hooked_solves(tag, device, schur=False)
+        scene, attrs, lens, solve_attrs, _ = build_problem_inputs(device)
+        prob = build_problem(scene, attrs, np.arange(FRAMES), solve_attrs,
+                             options, lens=lens)
+        fn, config = problem.residual_fn(prob), _lm_config(options)
+        init = lm.lm_init(fn, problem.initial_parameters(prob), config)
+        whole = lm.lm_run_block(fn, init, config)
+        path = os.path.join(folder, "lm.npz")
+        checkpoint.save_lm_state(path, lm.lm_run_block(fn, init, config, 2),
+                                 metadata={"iteration": 2})
+        state, meta = checkpoint.load_lm_state(path, device=device)
+        resumed = lm.lm_run_block(fn, state, config)
+        diff = float((resumed.x - whole.x).abs().max() / whole.x.abs().max())
+        print("%s checkpoint at iteration %d (%d bytes) resumed on %s: %d "
+              "iterations (uninterrupted %d), max|diff| / max|x| %.3g" % (
+                  tag, meta["iteration"], os.path.getsize(path),
+                  state.x.device, int(resumed.it), int(whole.it), diff))
+        if (int(state.it) != 2 or not state.x.is_cuda
+                or int(resumed.it) != int(whole.it)
+                or int(resumed.stop) != int(whole.stop)
+                or diff > HOOKED_RTOL):
+            raise AssertionError("%s the resumed solve left the "
+                                 "uninterrupted one" % tag)
+
+        tag = "[10 ba]"
+        _hooked_solves(tag, device, schur=True)
+        scene, attrs, lens, solve_attrs, _ = build_problem_inputs(
+            device, solve_bundles=True)
+        bridge, reason = ba_bridge.build_ba_bridge(
+            scene, attrs, np.arange(FRAMES), solve_attrs, options, lens=lens)
+        if bridge is None:
+            raise AssertionError("the shot is not BA-shaped: %s" % reason)
+        kw = dict(max_iterations=options.iterations, eps1=options.eps1,
+                  eps2=options.eps2, eps3=options.eps3,
+                  linear_solver="cholesky")
+        init = ba.ba_init(bridge.problem, options.tau)
+        whole = ba.ba_run_block(bridge.problem, init, options.iterations,
+                                **kw)
+        path = os.path.join(folder, "ba.npz")
+        checkpoint.save_ba_state(
+            path, ba.ba_run_block(bridge.problem, init, 2, **kw))
+        state, _ = checkpoint.load_ba_state(path, device=device)
+        resumed = ba.ba_run_block(bridge.problem, state, options.iterations,
+                                  **kw)
+        focal = [float(s.sh[0]) for s in (resumed, whole)]
+        lens_d = [float(s.sh[1]) for s in (resumed, whole)]
+        pose = float((resumed.cam - whole.cam).abs().max()
+                     / whole.cam.abs().max())
+        print("%s checkpoint at iteration 2 (%d bytes) resumed on %s: %d "
+              "iterations (uninterrupted %d), focal %.6f (%.6f), distortion "
+              "%.8f (%.8f), cost %.6g (%.6g), cameras max|diff| / max %.3g"
+              % (tag, os.path.getsize(path), state.cam.device,
+                 int(resumed.it), int(whole.it), focal[0], focal[1],
+                 lens_d[0], lens_d[1], float(resumed.cost), float(whole.cost),
+                 pose))
+        if (int(state.it) != 2 or not state.cam.is_cuda
+                or int(resumed.it) != int(whole.it)
+                or int(resumed.stop) != int(whole.stop)
+                or int(resumed.nfev) != int(whole.nfev)
+                or int(resumed.njev) != int(whole.njev)
+                or abs(focal[0] - focal[1]) > HOOKED_RTOL * FOCAL
+                or abs(lens_d[0] - lens_d[1]) > HOOKED_RTOL * DISTORTION
+                or abs(focal[0] - FOCAL) > FOCAL_TOL_MM
+                or pose > HOOKED_RTOL):
+            raise AssertionError("%s the resumed solve left the "
+                                 "uninterrupted one" % tag)
+    _check_export("[10 export]", distortion, device)
+
+
+def _plain_stack(models, fb, direction, device):
+    """The stack's map with every layer in plain PyTorch."""
+    from mayamatchmovesolver_torch.models import tde
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+
+    models = list(models) if direction == "distort" else list(models)[::-1]
+    lens_map = tde.distort if direction == "distort" else tde.undistort
+    out = stmap_mod.stmap_torch(models[0], fb, HD[0], HD[1], direction,
+                                device=device)
+    for model in models[1:]:
+        mapped = lens_map(model, fb, out[..., :2] - 0.5) + 0.5
+        out = torch.cat([mapped, out[..., 2:]], dim=-1)
+    return out
+
+
+def lens_file_stack(distortion, device, folder):
+    """A two-layer lens file (the shot's classic lens, a radial layer on
+    top) written, parsed back and attached to a camera; returns the
+    stack's models and film back as baked, float32 on `device`."""
+    import os
+
+    from mayamatchmovesolver_torch.io import lensfile
+    from mayamatchmovesolver_torch.models import scenelens
+    from mayamatchmovesolver_torch.scene import SceneGraph
+
+    layers = lensfile.LensLayers(layers=[
+        lensfile.LensLayer(scenelens.LENS_MODEL_CLASSIC,
+                           {"distortion": {None: distortion}}),
+        lensfile.LensLayer(scenelens.LENS_MODEL_RADIAL_DEG4,
+                           {k: {None: v} for k, v in STACK_RADIAL.items()}),
+    ])
+    path = os.path.join(folder, "stack.nk")
+    lensfile.write(path, layers)
+    parsed = lensfile.parse(path)
+    if [l.model_type for l in parsed.layers] != [
+            l.model_type for l in layers.layers]:
+        raise AssertionError("the lens file did not parse back")
+
+    sg = SceneGraph(frame_range=(1, 2), dtype=np.float32)
+    cam = sg.create_camera("cam", tz=10.0, sensor_width_mm=36.0,
+                           sensor_height_mm=24.0)
+    sg.create_marker("m", camera=cam, bundle=sg.create_bundle("b", tz=-5.0))
+    created = scenelens.attach_lens_file(sg, cam, path)
+    scene, attrs = sg.bake(device=device)
+    lens = scenelens.bake_scene_lens(sg, device=device)
+    frame = torch.zeros(1, dtype=torch.int64, device=device)
+    models, fb = [], None
+    for li, model_type in enumerate(lens.model_types[0]):
+        model, fb = scenelens._layer_model_and_filmback(
+            lens, scene, attrs, frame, 0, li, model_type)
+        models.append(type(model)(*[
+            getattr(model, f.name)[0] for f in dataclasses.fields(model)]))
+    fb = type(fb)(*[getattr(fb, f.name)[0] for f in dataclasses.fields(fb)])
+    baked = float(attrs.static_values[created[0]["distortion"].code // 2])
+    # The file holds 6 significant digits (%g).
+    if len(models) != 2 or abs(baked - distortion) > 1e-6 * abs(distortion):
+        raise AssertionError("attach_lens_file baked %r for %r"
+                             % (baked, distortion))
+    return models, fb
+
+
+def phase_stack_and_warp(device, distortion):
+    """The lens file's stack exported at HD in both directions (first
+    layer through the kernel) against the all-plain stack, and an HD
+    image warped through the maps.  Returns what time_stack_and_warp
+    needs."""
+    import tempfile
+
+    from mayamatchmovesolver_torch import models as models_mod
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+    from mayamatchmovesolver_torch.ops import warp
+
+    tag = "[11 stack]"
+    with tempfile.TemporaryDirectory() as folder:
+        stack, fb = lens_file_stack(distortion, device, folder)
+    maps = {}
+    for direction in ("distort", "undistort"):
+        before = stmap_mod.stmap_cuda.launches
+        maps[direction] = stmap_mod.stmap(stack, fb, HD[0], HD[1], direction,
+                                          device=device)
+        launched = stmap_mod.stmap_cuda.launches - before
+        plain = _plain_stack(stack, fb, direction, device)
+        torch.cuda.synchronize(device)
+        diff = float((maps[direction] - plain).abs().max())
+        print("%s %s: %d kernel launch, %s finite=%s max|diff vs all-plain "
+              "stack| %.3g" % (
+                  tag, direction, launched, tuple(maps[direction].shape),
+                  bool(maps[direction].isfinite().all()), diff))
+        if (launched != 1 or tuple(maps[direction].shape) != (HD[1], HD[0], 4)
+                or not bool(maps[direction].isfinite().all())
+                or not diff <= TOL):
+            raise AssertionError("bad %s stack map" % direction)
+    one = stmap_mod.stmap(stack[0], fb, HD[0], HD[1], "undistort",
+                          device=device)
+    if not float((maps["undistort"] - one).abs().max()) > 1e-4:
+        raise AssertionError("the second layer changed nothing")
+
+    tag = "[11 warp]"
+    rng = np.random.RandomState(5)
+    image_cpu = torch.as_tensor(
+        rng.uniform(0.0, 1.0, (HD[1], HD[0], 4)).astype(np.float32))
+    image = image_cpu.to(device)
+    # Through the Passthrough map: v is up in warp_image and the map's
+    # rows run the other way, so the image comes back with its rows
+    # reversed.  The map samples pixel centres, where the floor turns on
+    # float32's last bit; that shows only in the first column and the
+    # source's first row (their clamped neighbour is another pixel),
+    # which are left out.  Elsewhere the sample position u * w - 0.5 is
+    # float32 at w = 1920, good to 2^-13 px in each of x and y, and the
+    # random image changes by up to 1 from pixel to pixel.
+    ident = stmap_mod.stmap(models_mod.Passthrough(), fb, HD[0], HD[1],
+                            device=device)
+    flipped = warp.warp_image(image, ident)
+    diff = float((flipped - image.flip(0))[:-1, 1:].abs().max())
+    print("%s through the Passthrough map: the image with its rows "
+          "reversed, max|diff| %.3g" % (tag, diff))
+    if (tuple(flipped.shape) != tuple(image.shape)
+            or not diff <= IDENTITY_WARP_TOL):
+        raise AssertionError("the identity warp is not the image")
+    # Through the solved lens's map, built by warp_image_with_lens on the
+    # card (the kernel): the same map on the CPU gives the same image.
+    before = stmap_mod.stmap_cuda.launches
+    warped = warp.warp_image_with_lens(image, stack[0], fb, "undistort")
+    launched = stmap_mod.stmap_cuda.launches - before
+    on_cpu = warp.warp_image(image_cpu, one.cpu())
+    diff = float((warped.cpu() - on_cpu).abs().max())
+    moved = float((warped - image).abs().mean())
+    print("%s through the solved lens's map (%d kernel launch): max|diff "
+          "vs the CPU's warp through the same map| %.3g, mean|warped - "
+          "image| %.3g" % (tag, launched, diff, moved))
+    if (launched != 1 or not bool(warped.isfinite().all()) or not diff <= 1e-5
+            or not moved > 1e-3):
+        raise AssertionError("the lens warp left the CPU result")
+    return stack, fb, image, one
+
+
+def time_stack_and_warp(device, stack, fb, image, lens_map):
+    """CUDA-event times of the stack export and the warp, after the
+    stack path (nothing here counts toward it)."""
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+    from mayamatchmovesolver_torch.ops import warp
+
+    for direction in ("distort", "undistort"):
+        ms = _cuda_ms(lambda: stmap_mod.stmap(stack, fb, HD[0], HD[1],
+                                              direction, device=device))
+        plain_ms = _cuda_ms(lambda: _plain_stack(stack, fb, direction,
+                                                 device))
+        print("[11 stack times] %s: %.4f ms a call (all plain %.4f ms)" % (
+            direction, ms, plain_ms))
+    warp_ms = _cuda_ms(lambda: warp.warp_image(image, lens_map))
+    both_ms = _cuda_ms(lambda: warp.warp_image_with_lens(
+        image, stack[0], fb, "undistort"))
+    print("[11 warp times] %dx%dx4 float32: warp_image %.4f ms, "
+          "warp_image_with_lens (map + warp) %.4f ms" % (
+              HD[0], HD[1], warp_ms, both_ms))
+
+
 def phase_profile(device):
     """Where a warm solve's time goes, after the main path (nothing here
     counts toward it): the whole solve run again, and the normal system
@@ -665,7 +1172,7 @@ def main():
     device = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    worst, (ms, plain_ms) = phase_kernel_vs_plain(device)
+    worst, timing = phase_kernel_vs_plain(device)
 
     # Each main path runs with the launch count set to 0 just before it
     # and read just after.
@@ -674,10 +1181,14 @@ def main():
                        ("ba", lambda: phase_ba_path(device)),
                        ("production", lambda: _check_export(
                            "[8 production export]", phase_production(device),
-                           device))):
+                           device)),
+                       ("per-frame", lambda: phase_per_frame(device)),
+                       ("hooks", lambda: phase_hooks_and_checkpoints(device)),
+                       ("stack", lambda: phase_stack_and_warp(
+                           device, DISTORTION))):
         stmap_mod.stmap_cuda.launches = 0
         t0 = time.perf_counter()
-        path()
+        made = path()
         launches[name] = stmap_mod.stmap_cuda.launches
         print("[%s] stmap_cuda launches on the %s path: %d (path %.1f s)" % (
             name, name, launches[name], time.perf_counter() - t0))
@@ -688,11 +1199,17 @@ def main():
             phase_profile(device)
         if name == "ba":
             profile_ba_shot(device)
+        if name == "stack":
+            time_stack_and_warp(device, *made)
 
     print(json.dumps({"kernels": [{
         "name": "stmap", "route": "cuda", "source": STMAP_SOURCE,
         "replaces": STMAP_REPLACES, "launches": sum(launches.values()),
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": worst, "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        # No single PyTorch call computes a lens map.
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

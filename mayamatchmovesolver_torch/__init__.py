@@ -5,14 +5,20 @@ the module at the same path there, keeps its public names, and is held
 against it by the agreement tests in tests/test_torch/.  This package
 imports torch and numpy, never jax.
 
-Ported so far (the lens + camera solve and the ST-map export):
+Ported so far (the lens + camera solve, the Schur BA, the per-frame
+solve, the hooks and checkpoints, and the lens export with warp):
   core/    — TRS transforms, projection matrix, film fit
   scene/   — AttrBlock, FlatScene + evaluate, SceneGraph builder,
              interop (baked JAX arrays -> port objects)
-  models/  — 3DE lens models, SceneLens bindings
-  solver/  — loss, bounds, SolveProblem, dense LM, solve()
-  ops/     — ST-map export; csrc/stmap.cu is its Hopper kernel, built
-             and loaded by _kernels.py
+  models/  — 3DE lens models, SceneLens bindings, attach_lens_file
+  solver/  — loss, bounds, SolveProblem, the LM (one problem or a
+             batch), the Schur BA and its bridge, solve() with its
+             block-resumable solve loops, solve_per_frame, checkpoint
+  ops/     — ST-map export of a lens or a lens stack; csrc/stmap.cu is
+             its Hopper kernel, built and loaded by _kernels.py; image
+             warp; lens deformer
+  io/      — the Nuke-script lens file
+  utils/   — the Kalman filter of the sequential per-frame solve
 """
 
 __version__ = "0.1.0"

@@ -102,6 +102,47 @@ def attach_lens(scene_graph, camera, model_type, **param_values):
     return created
 
 
+def attach_lens_file(scene_graph, camera, path_or_layers):
+    """Attach every layer of a parsed Nuke-format lens file to the
+    camera (ref: the lens-file loading the reference routes through
+    mmLensModel3de node networks; parser: io/lensfile.py matching
+    lib/cppbind/mmlens/src/lens_io.rs:433-854).
+
+    path_or_layers: a file path or an io.lensfile.LensLayers.  Animated
+    knobs become animated attributes over the scene graph's frame
+    range (frames outside the file's range hold the nearest value).
+    Returns a list of per-layer attribute dicts.
+    """
+    from mayamatchmovesolver_torch.io import lensfile
+
+    if isinstance(path_or_layers, lensfile.LensLayers):
+        layers = path_or_layers
+    else:
+        layers = lensfile.parse(path_or_layers)
+
+    frames = scene_graph.frames
+    created = []
+    pixel_aspect = layers.camera.get("tde4_pixel_aspect", 1.0)
+    for layer in layers.layers:
+        values = {}
+        for name, default in _MODEL_FIELDS[layer.model_type]:
+            curve = layer.parameters.get(name)
+            if curve and None not in curve and len(curve) > 1:
+                values[name] = np.asarray([
+                    layer.value_at(name, int(f), float(default))
+                    for f in frames
+                ])
+            else:
+                values[name] = layer.value_at(
+                    name, int(frames[0]), float(default)
+                )
+        values["pixel_aspect"] = pixel_aspect
+        created.append(
+            attach_lens(scene_graph, camera, layer.model_type, **values)
+        )
+    return created
+
+
 def bake_scene_lens(scene_graph, *, device) -> SceneLens:
     """Collect lens bindings after the scene graph is built."""
     stacks = []

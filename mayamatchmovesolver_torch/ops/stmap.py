@@ -11,6 +11,8 @@ as an RGBA float32 ST-map (R=S, G=T, B=0, A=1).
   stmap       — the dispatcher: the kernel on a CUDA device, the plain
                 version on the CPU and for Passthrough.  There is no
                 fallback: on CUDA it launches the kernel or raises.
+  stmap_stack — a lens-layer stack: the first layer through stmap, each
+                further layer point-wise in plain PyTorch.
 """
 
 import ctypes
@@ -173,13 +175,13 @@ stmap_cuda.launches = 0
 def stmap(model, film_back, width, height, direction="distort", *, device):
     """ST map on `device`: the CUDA kernel for the 3DE models on a CUDA
     device, the plain version on the CPU and for Passthrough (which has
-    no kernel, as in the reference's dispatcher).  Lens stacks (a list
-    of models) come with stmap_stack in a later port."""
+    no kernel, as in the reference's dispatcher).  `model` may be a
+    list or tuple of models — a lens-layer stack chained like the
+    reference's m_inputLensModel list (ref:
+    lib/cppbind/mmlens/src/distortion_layers.rs:255); see stmap_stack."""
     if isinstance(model, (list, tuple)):
-        raise NotImplementedError(
-            "lens-layer stacks need stmap_stack, which is not ported to "
-            "torch yet (ROADMAP Queue 1 item 10)"
-        )
+        return stmap_stack(model, film_back, width, height, direction,
+                           device=device)
     device = torch.device(device)
     if device.type == "cuda" and not isinstance(model, tde.Passthrough):
         return stmap_cuda(model, film_back, width, height, direction,
@@ -188,3 +190,37 @@ def stmap(model, film_back, width, height, direction="distort", *, device):
         return stmap_torch(model, film_back, width, height, direction,
                            device=device)
     raise ValueError("stmap runs on 'cpu' or 'cuda', got %s" % device)
+
+
+def stmap_stack(models, film_back, width, height, direction="distort", *,
+                device):
+    """ST map for a multi-layer lens stack, (H, W, 4) float32 on `device`.
+
+    The first layer runs through stmap — on a CUDA device the hand
+    kernel, with no fallback.  Each further layer is applied point-wise
+    to the previous layer's output coordinates in plain PyTorch, in the
+    film back's dtype (the reference does this part outside its kernel
+    too; it chains per-point virtual calls, lens_model.h:36-120).
+    Distortion applies the layers in order, undistortion the inverses in
+    reverse; an empty stack is Passthrough; channels 2 and 3 carry
+    through.
+    """
+    models = list(models)
+    if not models:
+        return stmap(tde.Passthrough(), film_back, width, height, direction,
+                     device=device)
+    if direction != "distort":
+        models = models[::-1]
+    out = stmap(models[0], film_back, width, height, direction,
+                device=device)
+    work = torch.as_tensor(film_back.film_back_width_cm).dtype
+    for model in models[1:]:
+        pts_marker = out[..., :2].to(work) - 0.5
+        if direction == "distort":
+            mapped = tde.distort(model, film_back, pts_marker)
+        else:
+            mapped = tde.undistort(model, film_back, pts_marker)
+        out = torch.cat(
+            [(mapped + 0.5).to(torch.float32), out[..., 2:]], dim=-1
+        )
+    return out

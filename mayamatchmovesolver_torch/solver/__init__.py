@@ -16,9 +16,14 @@ from mayamatchmovesolver_torch.solver.results import (  # noqa: F401
     parse_key_value_strings,
 )
 from mayamatchmovesolver_torch.solver.solve import (  # noqa: F401
+    FrameSolveMode,
+    SceneGraphMode,
     SolverOptions,
     build_problem,
+    build_stiffness,
     count_errors_and_parameters,
+    merge_stiffness,
     solve,
+    solve_per_frame,
 )
 from mayamatchmovesolver_torch.solver import registry  # noqa: F401

@@ -9,6 +9,15 @@ the Nielsen mu/nu update.  The iteration loop is a Python while loop on
 the host; each iteration's body is branch-free tensor code, selected
 with torch.where exactly like the reference's while_loop body.
 
+Every function here also takes a batch of independent problems: x of
+shape (B, P) and a residual function (B, P) -> (B, m) whose row b
+depends on x[b] alone.  The state then carries the leading axis in every
+field, a problem that has stopped is held in all of them (counters
+included) while the others iterate, and each problem ends with the
+iterations, evaluation counts and stop reason of its own unbatched
+solve — the counterpart of the reference's jax.vmap over its
+while_loop.
+
 Stop reasons mirror cminpack's info codes in spirit:
   1 ftol (relative cost reduction), 2 xtol (step size), 3 gtol
   (gradient inf-norm), 4 max iterations, 5 singular/failed step.
@@ -22,7 +31,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jacrev, jvp, vmap
+from torch.func import jacrev, jvp, vjp, vmap
 
 
 class LMConfig(NamedTuple):
@@ -76,11 +85,33 @@ def _make_normal_system(residual_fn, mode):
     evaluated once per system and only the tangents carry the batch —
     the counterpart of the reference's jax.linearize.  rev mode: one VJP
     per residual row via jacrev (better when m << n).
+
+    For a batch x of shape (B, P) the basis vector e_p is the tangent of
+    parameter p in every problem at once (the Jacobian is block-diagonal
+    over the batch), so a batch costs as many passes as one problem.
     """
+
+    def system_batched(x):
+        if mode == "rev":
+            r, pullback = vjp(residual_fn, x)
+            basis = torch.eye(r.shape[-1], dtype=x.dtype, device=x.device)
+            j = vmap(lambda c: pullback(c.expand(r.shape))[0])(basis)
+            jt = j.permute(1, 2, 0)  # (B, n, m)
+        else:
+            basis = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+            r, jt = vmap(
+                lambda t: jvp(residual_fn, (x,), (t.expand(x.shape),)),
+                out_dims=(None, 0),
+            )(basis)
+            jt = jt.permute(1, 0, 2)  # (B, n, m), row i = J_b @ e_i
+        return r, jt @ jt.mT, (jt @ r[..., None])[..., 0]
+
     if mode == "rev":
         jac_fn = jacrev(residual_fn)
 
         def system(x):
+            if x.dim() == 2:
+                return system_batched(x)
             r = residual_fn(x)
             j = jac_fn(x)
             return r, j.T @ j, j.T @ r
@@ -88,6 +119,8 @@ def _make_normal_system(residual_fn, mode):
         return system
 
     def system(x):
+        if x.dim() == 2:
+            return system_batched(x)
         basis = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
         r, jt = vmap(
             lambda t: jvp(residual_fn, (x,), (t,)), out_dims=(None, 0)
@@ -105,15 +138,19 @@ def _solve_damped(jtj, jtr, mu, diag_floor=1e-12):
     with unit diagonal, so mixed-unit parameter sets (mm focal + degrees
     + world units) stay within float32's conditioning budget.  A failed
     factorization (not positive definite) gives a NaN step, which the
-    caller turns into stop reason 5.
+    caller turns into stop reason 5.  jtj (..., P, P), jtr (..., P) and
+    mu (...) may carry leading batch axes.
     """
-    d = torch.clamp(torch.diagonal(jtj), min=diag_floor)
+    d = torch.clamp(torch.diagonal(jtj, dim1=-2, dim2=-1), min=diag_floor)
     s = torch.rsqrt(d)
-    a = jtj * (s[:, None] * s[None, :])
-    a = a + mu * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    a = jtj * (s[..., :, None] * s[..., None, :])
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    a = a + mu[..., None, None] * eye
+    # One factorization for the whole batch; info is per problem, so a
+    # failed one gets the NaN step alone.
     chol, info = torch.linalg.cholesky_ex(a)
-    y = torch.cholesky_solve(-(s * jtr)[:, None], chol)[:, 0]
-    y = torch.where(info == 0, y, torch.nan)
+    y = torch.cholesky_solve(-(s * jtr)[..., None], chol)[..., 0]
+    y = torch.where((info == 0)[..., None], y, torch.nan)
     return s * y
 
 
@@ -126,22 +163,35 @@ def lm_init(residual_fn: Callable, x0, config: LMConfig = LMConfig()):
     normal_system = _make_normal_system(residual_fn, config.jacobian_mode)
     r0, jtj0, jtr0 = normal_system(x0)
 
-    def scalar(v, dtype):
-        return torch.tensor(v, dtype=dtype, device=x0.device)
+    def full(v, dtype):
+        return torch.full(x0.shape[:-1], v, dtype=dtype, device=x0.device)
 
     return LMState(
         x=x0,
         r=r0,
         jtj=jtj0,
         jtr=jtr0,
-        cost=0.5 * torch.sum(r0 * r0),
-        mu=scalar(config.tau, x0.dtype),
-        nu=scalar(2.0, x0.dtype),
-        it=scalar(0, torch.int32),
-        nfev=scalar(1, torch.int32),
-        njev=scalar(1, torch.int32),
-        stop=scalar(0, torch.int32),
+        cost=0.5 * torch.sum(r0 * r0, dim=-1),
+        mu=full(config.tau, x0.dtype),
+        nu=full(2.0, x0.dtype),
+        it=full(0, torch.int32),
+        nfev=full(1, torch.int32),
+        njev=full(1, torch.int32),
+        stop=full(0, torch.int32),
     )
+
+
+def _hold(active, old: LMState, new: LMState) -> LMState:
+    """`new` where `active`, else `old`, in every field of a batched
+    state."""
+    def pick(a, b):
+        return torch.where(active.reshape(active.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+
+    return LMState(**{
+        f.name: pick(getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(LMState)
+    })
 
 
 def lm_run_block(
@@ -152,16 +202,22 @@ def lm_run_block(
 ) -> LMState:
     """Run LM iterations until convergence or `iteration_limit` total
     iterations.  Resumable: feed the returned state back in with a
-    larger limit.  Reads the stop flag on the host once per iteration.
+    larger limit.  Reads one flag on the host per iteration: whether any
+    problem of the state is still running.  In a batched state the
+    problems that are not are held as they are.
     """
     normal_system = _make_normal_system(residual_fn, config.jacobian_mode)
     if iteration_limit is None:
         iteration_limit = config.max_iterations
     limit = min(int(iteration_limit), config.max_iterations)
     body = _make_body(normal_system, config)
-    while int(state.stop) == 0 and int(state.it) < limit:
-        state = body(state)
-    return state
+    batched = state.stop.dim() > 0
+    while True:
+        active = (state.stop == 0) & (state.it < limit)
+        if not bool(active.any()):
+            return state
+        new = body(state)
+        state = _hold(active, state, new) if batched else new
 
 
 def lm_finalize(state: LMState, cost_initial) -> LMResult:
@@ -175,7 +231,7 @@ def lm_finalize(state: LMState, cost_initial) -> LMResult:
         func_evals=state.nfev,
         jacobian_evals=state.njev,
         stop_reason=torch.where(state.stop == 0, 4, state.stop),
-        gradient_norm=torch.max(torch.abs(state.jtr)),
+        gradient_norm=torch.amax(torch.abs(state.jtr), dim=-1),
     )
 
 
@@ -189,16 +245,18 @@ def levenberg_marquardt(
 
 
 def _make_body(normal_system, config: LMConfig):
-    """One LM iteration, shared by the fused and the resumable loops."""
+    """One LM iteration, shared by the fused and the resumable loops;
+    every reduction runs over the last axis, so a state with a leading
+    batch axis iterates all its problems at once."""
     where = torch.where
 
     def body(s: LMState):
         dx = _solve_damped(s.jtj, s.jtr, s.mu)
-        dx_ok = torch.all(torch.isfinite(dx))
-        dx = where(dx_ok, dx, 0.0)
+        dx_ok = torch.all(torch.isfinite(dx), dim=-1)
+        dx = where(dx_ok[..., None], dx, 0.0)
 
-        xnorm = torch.linalg.norm(s.x)
-        step_small = torch.linalg.norm(dx) <= config.eps2 * (
+        xnorm = torch.linalg.norm(s.x, dim=-1)
+        step_small = torch.linalg.norm(dx, dim=-1) <= config.eps2 * (
             xnorm + config.eps2
         )
 
@@ -206,23 +264,26 @@ def _make_body(normal_system, config: LMConfig):
         # The trial point's residual AND normal system in one pass; on
         # rejection they are discarded by the selects below.
         r_new, jtj_new, jtr_new = normal_system(x_new)
-        cost_new = 0.5 * torch.sum(r_new * r_new)
+        cost_new = 0.5 * torch.sum(r_new * r_new, dim=-1)
 
-        d = torch.clamp(torch.diagonal(s.jtj), min=1e-12)
-        predicted = 0.5 * torch.dot(dx, s.mu * d * dx - s.jtr)
+        d = torch.clamp(torch.diagonal(s.jtj, dim1=-2, dim2=-1), min=1e-12)
+        predicted = 0.5 * torch.sum(
+            dx * (s.mu[..., None] * d * dx - s.jtr), dim=-1
+        )
         predicted = torch.clamp(predicted, min=1e-300)
         rho = (s.cost - cost_new) / predicted
 
         accept = dx_ok & (rho > 0.0) & torch.isfinite(cost_new)
+        accept_v, accept_m = accept[..., None], accept[..., None, None]
 
         mu_accept = s.mu * torch.clamp(
             1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0
         )
         mu_new = where(accept, mu_accept, s.mu * s.nu)
         nu_new = where(accept, 2.0, s.nu * 2.0)
-        jtr2 = where(accept, jtr_new, s.jtr)
+        jtr2 = where(accept_v, jtr_new, s.jtr)
 
-        gnorm = torch.max(torch.abs(jtr2))
+        gnorm = torch.amax(torch.abs(jtr2), dim=-1)
         ftol_hit = accept & (
             (s.cost - cost_new)
             <= config.eps3 * torch.clamp(s.cost, min=1e-300)
@@ -238,9 +299,9 @@ def _make_body(normal_system, config: LMConfig):
         accepted = accept.to(torch.int32)
 
         return LMState(
-            x=where(accept, x_new, s.x),
-            r=where(accept, r_new, s.r),
-            jtj=where(accept, jtj_new, s.jtj),
+            x=where(accept_v, x_new, s.x),
+            r=where(accept_v, r_new, s.r),
+            jtj=where(accept_m, jtj_new, s.jtj),
             jtr=jtr2,
             cost=where(accept, cost_new, s.cost),
             mu=mu_new,

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel and its Schur BA on the card, and the
-no-fallback rule.
+"""The port's CUDA kernel, its Schur BA, its per-frame solve, its lens
+stacks and its checkpoints on the card, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -12,7 +12,9 @@ sides float32 with IEEE division, in another operation order.  BA
 tolerance: parameters within 1e-5 of each tensor's largest entry, the
 cost within 1e-3 relative (float32 on either side; on the CPU float32
 and float64 part by 3e-7 and 1e-4 on this problem: the final cost is a
-small difference of large terms).
+small difference of large terms).  Per-frame solve: camera channels
+within 1e-4 of the CPU's (float32 on both; a 6-parameter pose from 8
+exact points).
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ import torch
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
 from _torch_stmap_models import MODELS, torch_model
 from mayamatchmovesolver_torch.solver import ba as t_ba
+from mayamatchmovesolver_torch.solver import checkpoint as t_checkpoint
+from mayamatchmovesolver_torch.solver import lm as t_lm
 
 ATOL = 2e-5
 
@@ -105,3 +109,132 @@ def test_solve_ba_on_cuda_matches_cpu(assembly, linear_solver):
         np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(),
                                    err_msg=name)
     np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_stmap_stack_on_cuda_launches_the_kernel_once(direction):
+    """A stack's first layer goes through the kernel — one launch a call —
+    and the map equals the all-plain stack on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.models import tde
+
+    classic, fb = torch_model("classic", device="cuda")
+    radial, _ = torch_model("radial_deg4", device="cuda")
+    radial = type(radial)(**{k: v * 0.2 for k, v in vars(radial).items()})
+    stack = [classic, radial]
+    launches = t_stmap.stmap_cuda.launches
+    got = t_stmap.stmap(stack, fb, 640, 360, direction, device="cuda")
+    assert t_stmap.stmap_cuda.launches == launches + 1
+    got2 = t_stmap.stmap_stack(stack, fb, 640, 360, direction, device="cuda")
+    assert t_stmap.stmap_cuda.launches == launches + 2
+    order = stack if direction == "distort" else stack[::-1]
+    lens_map = tde.distort if direction == "distort" else tde.undistort
+    want = t_stmap.stmap_torch(order[0], fb, 640, 360, direction,
+                               device="cuda")
+    mapped = lens_map(order[1], fb, want[..., :2] - 0.5) + 0.5
+    want = torch.cat([mapped, want[..., 2:]], dim=-1)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.shape == (360, 640, 4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL)
+    assert torch.equal(got, got2)
+
+
+def _pose_shot(device, frames=6, bundles=8):
+    """A float32 shot with exact tracks, its camera moved off the truth in
+    every frame: (scene, attrs, solve_attrs, truth rows)."""
+    import dataclasses
+
+    from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
+    from mayamatchmovesolver_torch.scene.flatscene import (
+        set_marker_screen_positions,
+    )
+
+    rng = np.random.RandomState(8)
+    sg = SceneGraph(frame_range=(1, frames), dtype=np.float32)
+    cam = sg.create_camera(
+        "cam", tx=np.linspace(-2, 2, frames), ty=np.full(frames, 1.0),
+        tz=np.full(frames, 12.0), rx=np.zeros(frames),
+        ry=np.linspace(-6, 6, frames), rz=np.zeros(frames),
+        focal_length_mm=35.0)
+    for i in range(bundles):
+        bnd = sg.create_bundle("b%d" % i, tx=rng.uniform(-4, 4),
+                               ty=rng.uniform(-2, 3), tz=rng.uniform(-12, -5))
+        sg.create_marker("m%d" % i, camera=cam, bundle=bnd,
+                         tx=np.zeros(frames), ty=np.zeros(frames))
+    scene, attrs = sg.bake(device=device)
+    fi = torch.arange(frames, device=device)
+    attrs = set_marker_screen_positions(
+        scene, attrs, fi, evaluate(scene, attrs, fi).point_xy)
+    channels = ("tx", "ty", "tz", "rx", "ry", "rz")
+    rows = [cam.attr(ch).code // 2 for ch in channels]
+    truth = attrs.anim_values[rows].cpu().numpy()
+    anim = attrs.anim_values.clone()
+    anim[rows] += torch.as_tensor(
+        rng.normal(0.0, 0.05, (6, frames)), dtype=anim.dtype, device=device)
+    attrs = dataclasses.replace(attrs, anim_values=anim)
+    return scene, attrs, [cam.attr(ch) for ch in channels], rows, truth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sequential", [False, True])
+def test_solve_per_frame_on_cuda_matches_cpu(sequential):
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.solver import (
+        SolverOptions, solve_per_frame)
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        scene, attrs, solve_attrs, rows, truth = _pose_shot(device)
+        attrs_out, result = solve_per_frame(
+            scene, attrs, np.arange(6), solve_attrs,
+            SolverOptions(image_width=1920.0), sequential=sequential)
+        assert attrs_out.anim_values.device.type == device
+        assert attrs_out.anim_values.dtype == torch.float32
+        assert result.success and not any(result.per_frame_reverted)
+        out[device] = (attrs_out.anim_values[rows].cpu().numpy(), result)
+        np.testing.assert_allclose(out[device][0], truth, atol=1e-3)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4)
+    assert out["cuda"][1].error_final < 1e-3 > out["cpu"][1].error_final
+
+
+@pytest.mark.cuda
+def test_checkpoint_saved_on_cuda_resumes_on_cpu(tmp_path):
+    """An LM state of a batched solve saved from the card loads on the CPU
+    and runs on to the end the card reaches."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    t = torch.linspace(0.0, 4.0, 15)
+    rng = np.random.RandomState(1)
+    truth = rng.uniform([1.0, 0.3, -1.0], [3.0, 1.5, 1.0], (5, 3))
+    data = torch.as_tensor(
+        truth[:, :1] * np.exp(-truth[:, 1:2] * t.numpy()) + truth[:, 2:],
+        dtype=torch.float32)
+    x0 = torch.as_tensor(truth * rng.uniform(0.7, 1.3, (5, 3)),
+                         dtype=torch.float32)
+
+    def residual(device):
+        tt, dd = t.to(device), data.to(device)
+        return lambda x: (x[..., 0:1] * torch.exp(-x[..., 1:2] * tt)
+                          + x[..., 2:3]) - dd
+
+    config = t_lm.LMConfig(max_iterations=25)
+    fn = residual("cuda")
+    init = t_lm.lm_init(fn, x0.cuda(), config)
+    end = t_lm.lm_run_block(fn, init, config)
+    path = tmp_path / "lm.npz"
+    t_checkpoint.save_lm_state(path, t_lm.lm_run_block(fn, init, config, 2),
+                               metadata={"from": "cuda"})
+    state, meta = t_checkpoint.load_lm_state(path, device="cpu")
+    assert meta == {"from": "cuda"} and state.x.device.type == "cpu"
+    assert state.it.tolist() == [2] * 5 and state.it.dtype == torch.int32
+    resumed = t_lm.lm_run_block(residual("cpu"), state, config)
+    assert resumed.x.device.type == "cpu"
+    np.testing.assert_allclose(resumed.x.numpy(), end.x.cpu().numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(resumed.x.numpy(), truth, atol=1e-3)
+    back, _ = t_checkpoint.load_lm_state(path, device="cuda")
+    assert back.x.is_cuda and back.jtj.shape == (5, 3, 3)

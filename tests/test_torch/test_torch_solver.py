@@ -205,9 +205,6 @@ def test_refusal_string_matches(lens_focal):
 @pytest.mark.parametrize("option,value,match", [
     ("solver_type", t_registry.SOLVER_TYPE_LM_SHARDED, "item 14"),
     ("solver_type", t_registry.SOLVER_TYPE_BA_SHARDED, "item 14"),
-    ("iteration_callback", print, "item 8"),
-    ("interrupt_check", lambda: False, "item 8"),
-    ("max_seconds", 10.0, "item 8"),
     ("profile_dir", "trace", "item 15"),
 ])
 def test_solve_refuses_unported_options(lens_focal, option, value, match):
@@ -216,6 +213,33 @@ def test_solve_refuses_unported_options(lens_focal, option, value, match):
         t_solve.SolverOptions(), **{option: value})
     with pytest.raises(NotImplementedError, match=match):
         t_solve.solve(scene, attrs, [0], sa, options, lens=lens)
+
+
+@pytest.mark.parametrize("option,value", [
+    ("iteration_callback", lambda it, cost: None),
+    ("interrupt_check", lambda: False),
+    ("max_seconds", 3600.0),
+])
+def test_solve_with_a_host_hook_equals_the_plain_solve(lens_focal, option,
+                                                       value):
+    """Each hook alone sends solve() through the block-resumable solve loop,
+    which must give the fused solve's result exactly."""
+    _, (scene, attrs, lens, sa, _) = lens_focal
+    n = attrs.num_frames
+    want_attrs, want = t_solve.solve(
+        scene, attrs, np.arange(n), sa,
+        t_solve.SolverOptions(image_width=1920.0), lens=lens)
+    options = dataclasses.replace(
+        t_solve.SolverOptions(image_width=1920.0), **{option: value})
+    got_attrs, got = t_solve.solve(scene, attrs, np.arange(n), sa, options,
+                                   lens=lens)
+    assert not got.user_interrupted and got.solver_type_name == "lm_jax"
+    assert got.iterations == want.iterations
+    assert got.reason_string == want.reason_string
+    assert got.error_final == want.error_final
+    np.testing.assert_array_equal(got.solved_parameters,
+                                  want.solved_parameters)
+    assert torch.equal(got_attrs.static_values, want_attrs.static_values)
 
 
 def test_solve_refuses_unported_default_solver(lens_focal, monkeypatch):

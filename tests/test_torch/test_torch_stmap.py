@@ -150,8 +150,12 @@ def test_stmap_on_cpu_is_the_plain_version():
 
 def test_stmap_refuses_what_it_does_not_port():
     model, fb = torch_model("classic")
-    with pytest.raises(NotImplementedError, match="stmap_stack"):
-        t_stmap.stmap([model, model], fb, 8, 8, device="cpu")
+    # A lens stack is ported: a list goes to stmap_stack.
+    stack = t_stmap.stmap([model, model], fb, 8, 8, device="cpu")
+    assert stack.shape == (8, 8, 4) and not torch.equal(
+        stack, t_stmap.stmap(model, fb, 8, 8, device="cpu"))
+    with pytest.raises(ValueError, match="cpu' or 'cuda"):
+        t_stmap.stmap([model, model], fb, 8, 8, device="meta")
     with pytest.raises(ValueError, match="cpu' or 'cuda"):
         t_stmap.stmap(model, fb, 8, 8, device="meta")
     with pytest.raises(ValueError, match="needs a CUDA device"):
