@@ -3,7 +3,7 @@
 Each kernel source in csrc/ has a plain C interface.  At first use it is
 compiled by nvcc into a shared library under build/kernels/ at the
 repository root, named by a hash of the source and the flags, and loaded
-with ctypes.  Nothing is built at import time, and nothing here touches
+with ctypes.  Nothing is built at import time, and nothing here calls
 torch: the callers pass device pointers and the stream as integers.
 """
 
@@ -16,14 +16,21 @@ import shutil
 import subprocess
 import tempfile
 
+from mayamatchmovesolver_torch.models.base import DISTORT_INVERSE_ITERATIONS
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 
-# IEEE division and square root (no --use_fast_math): the kernels are
-# held to their plain PyTorch versions at 2e-5.
+# No --use_fast_math: the kernels are held to their plain PyTorch
+# versions at 2e-5.  The fixed point's iteration count is a compile-time
+# constant of the kernels (its loop unrolls), taken from models/base.py.
+# --resource-usage makes ptxas report registers and spills a kernel; build
+# keeps that report beside the library.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "--resource-usage",
+    "-DMMSOLVER_DISTORT_ITERATIONS=%d" % DISTORT_INVERSE_ITERATIONS,
 )
 
 
@@ -48,6 +55,12 @@ def library_path(name):
     return BUILD_DIR / ("%s_%s.so" % (name, key[:16]))
 
 
+def resource_usage_path(name):
+    """Where build keeps ptxas's report (registers, stack, spills of every
+    kernel) of csrc/<name>.cu."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def build(name):
     """Compile csrc/<name>.cu if its library is missing; return the path.
 
@@ -69,6 +82,7 @@ def build(name):
                 "nvcc failed (%d) building %s:\n%s\n%s"
                 % (proc.returncode, name, " ".join(cmd), proc.stderr)
             )
+        resource_usage_path(name).write_text(proc.stderr)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -83,18 +97,22 @@ def load(name):
 
 
 @functools.lru_cache(maxsize=None)
-def stmap_function():
-    """mmsolver_stmap from csrc/stmap.cu, with its C signature set."""
-    fn = load("stmap").mmsolver_stmap
-    fn.argtypes = [
-        ctypes.c_void_p,  # out (device, float4 per pixel)
-        ctypes.c_int,  # width
-        ctypes.c_int,  # height
-        ctypes.c_int,  # core id
-        ctypes.c_int,  # distort
-        ctypes.c_int,  # fixed-point iterations
-        ctypes.c_void_p,  # host parameter floats
-        ctypes.c_void_p,  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+def stmap_functions():
+    """(mmsolver_stmap, mmsolver_stmap_layer) from csrc/stmap.cu, with
+    their C signatures set.  Both take the map's device pointer, width,
+    height, core id, distort flag, the host parameter floats and the
+    stream, and return the launch's CUDA error code."""
+    lib = load("stmap")
+    functions = (lib.mmsolver_stmap, lib.mmsolver_stmap_layer)
+    for fn in functions:
+        fn.argtypes = [
+            ctypes.c_void_p,  # map (device, float4 per pixel)
+            ctypes.c_int,  # width
+            ctypes.c_int,  # height
+            ctypes.c_int,  # core id
+            ctypes.c_int,  # distort
+            ctypes.c_void_p,  # host parameter floats
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+    return functions

@@ -27,6 +27,18 @@ MODELS = {
 }
 
 
+# Parameters that are no distortion coefficients: scaling them toward 0
+# makes no weaker lens.
+NEUTRAL = ("anamorphic_squeeze", "squeeze_x", "squeeze_y", "rescale",
+           "lens_rotation", "cylindric_direction", "cylindric_bending")
+
+
+def weaker(model, factor):
+    """`model` with every distortion coefficient scaled by `factor`."""
+    return type(model)(**{k: (v if k in NEUTRAL else v * factor)
+                          for k, v in vars(model).items()})
+
+
 def torch_model(name, device="cpu"):
     """(model, film back) of MODELS[name] in the port, float32."""
     import torch

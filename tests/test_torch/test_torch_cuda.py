@@ -1,4 +1,5 @@
-"""The port's CUDA kernel, its Schur BA, its per-frame solve, its lens
+"""The port's CUDA kernels (the ST map from the pixel index and its
+layer variant from a map), its Schur BA, its per-frame solve, its lens
 stacks and its checkpoints on the card, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
@@ -8,7 +9,7 @@ no JAX:
 
 Without a CUDA device the card tests skip themselves and the dispatch
 test checks that a CUDA request raises.  Kernel tolerance 2e-5: both
-sides float32 with IEEE division, in another operation order.  BA
+sides float32, in another operation order (the kernels divide nowhere).  BA
 tolerance: parameters within 1e-5 of each tensor's largest entry, the
 cost within 1e-3 relative (float32 on either side; on the CPU float32
 and float64 part by 3e-7 and 1e-4 on this problem: the final cost is a
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
-from _torch_stmap_models import MODELS, torch_model
+from _torch_stmap_models import MODELS, torch_model, weaker
 from mayamatchmovesolver_torch.solver import ba as t_ba
 from mayamatchmovesolver_torch.solver import checkpoint as t_checkpoint
 from mayamatchmovesolver_torch.solver import lm as t_lm
@@ -111,11 +112,17 @@ def test_solve_ba_on_cuda_matches_cpu(assembly, linear_solver):
     np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
 
 
+def _launches():
+    return (t_stmap.stmap_cuda.launches, t_stmap.stmap_layer_cuda.launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 def test_stmap_stack_on_cuda_launches_the_kernel_once(direction):
-    """A stack's first layer goes through the kernel — one launch a call —
-    and the map equals the all-plain stack on the card."""
+    """A stack runs no eager PyTorch layer on the card: its first layer is
+    one stmap_cuda launch, every further 3DE layer one stmap_layer_cuda
+    launch, a Passthrough layer none; and the map equals the all-plain
+    stack on the card."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from mayamatchmovesolver_torch.models import tde
@@ -124,22 +131,85 @@ def test_stmap_stack_on_cuda_launches_the_kernel_once(direction):
     radial, _ = torch_model("radial_deg4", device="cuda")
     radial = type(radial)(**{k: v * 0.2 for k, v in vars(radial).items()})
     stack = [classic, radial]
-    launches = t_stmap.stmap_cuda.launches
+    before = _launches()
     got = t_stmap.stmap(stack, fb, 640, 360, direction, device="cuda")
-    assert t_stmap.stmap_cuda.launches == launches + 1
-    got2 = t_stmap.stmap_stack(stack, fb, 640, 360, direction, device="cuda")
-    assert t_stmap.stmap_cuda.launches == launches + 2
-    order = stack if direction == "distort" else stack[::-1]
-    lens_map = tde.distort if direction == "distort" else tde.undistort
-    want = t_stmap.stmap_torch(order[0], fb, 640, 360, direction,
+    assert _launches() == (before[0] + 1, before[1] + 1)
+    got2 = t_stmap.stmap_stack(
+        [tde.Passthrough(), classic, tde.Passthrough(), radial], fb, 640,
+        360, direction, device="cuda")
+    assert _launches() == (before[0] + 2, before[1] + 2)
+    only = t_stmap.stmap_stack([tde.Passthrough()], fb, 640, 360, direction,
                                device="cuda")
-    mapped = lens_map(order[1], fb, want[..., :2] - 0.5) + 0.5
-    want = torch.cat([mapped, want[..., 2:]], dim=-1)
+    assert _launches() == (before[0] + 2, before[1] + 2)
+    want = t_stmap.stmap_stack_torch(stack, fb, 640, 360, direction,
+                                     device="cuda")
     torch.cuda.synchronize()
     assert got.is_cuda and got.shape == (360, 640, 4)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=ATOL)
     assert torch.equal(got, got2)
+    assert torch.equal(only, t_stmap.stmap_torch(
+        tde.Passthrough(), fb, 640, 360, direction, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_stmap_layer_cuda_kernel_matches_plain_version(name, direction):
+    """The layer variant, in place on an irregular map (a weaker lens's
+    first layer, with values of its own in channels 2 and 3), against
+    stmap_layer_torch."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    model, fb = torch_model(name, device="cuda")
+    names = list(MODELS)
+    other, _ = torch_model(names[(names.index(name) + 1) % len(names)],
+                           device="cuda")
+    other = weaker(other, 0.3)
+    for width, height in ((200, 100), (1001, 333), (1920, 1080)):
+        source = t_stmap.stmap_cuda(other, fb, width, height, direction,
+                                    device="cuda")
+        source[..., 2:] = torch.as_tensor(
+            np.random.RandomState(4).uniform(-1, 1, (height, width, 2)),
+            dtype=torch.float32, device="cuda")
+        work = source.clone()
+        launches = t_stmap.stmap_layer_cuda.launches
+        got = t_stmap.stmap_layer_cuda(work, model, fb, direction)
+        assert got is work
+        assert t_stmap.stmap_layer_cuda.launches == launches + 1
+        want = t_stmap.stmap_layer_torch(source, model, fb, direction)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.cpu().numpy(), atol=ATOL,
+            err_msg="%s/%s %dx%d" % (name, direction, width, height))
+        assert torch.equal(got[..., 2:], source[..., 2:])
+
+
+@pytest.mark.cuda
+def test_stmap_layer_cuda_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    model, fb = torch_model("classic", device="cuda")
+    good = t_stmap.stmap_cuda(model, fb, 64, 32, device="cuda")
+    launches = t_stmap.stmap_layer_cuda.launches
+    for bad, message in (
+            (good.cpu(), "on a CUDA device"),
+            (good.double(), "float32"),
+            (good.transpose(0, 1), "contiguous"),
+            (good[:, ::2], "contiguous"),
+            (good[..., :3].contiguous(), r"\(H, W, 4\)"),
+            (good.reshape(-1, 4), r"\(H, W, 4\)"),
+            (good[:0], r"\(H, W, 4\)")):
+        with pytest.raises(ValueError, match=message):
+            t_stmap.stmap_layer_cuda(bad, model, fb)
+    with pytest.raises(ValueError, match="direction"):
+        t_stmap.stmap_layer_cuda(good, model, fb, "sideways")
+    assert t_stmap.stmap_layer_cuda.launches == launches
+    kept = good.clone()
+    t_stmap.stmap_layer_cuda(good, model, fb)
+    torch.cuda.synchronize()
+    assert t_stmap.stmap_layer_cuda.launches == launches + 1
+    assert not torch.equal(good, kept)
 
 
 def _pose_shot(device, frames=6, bundles=8):

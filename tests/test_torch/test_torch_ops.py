@@ -26,6 +26,7 @@ import mayamatchmovesolver_tpu.ops.lensdeform as j_deform
 import mayamatchmovesolver_tpu.ops.stmap as j_stmap
 import mayamatchmovesolver_tpu.ops.warp as j_warp
 from _torch_port_cases import to_numpy
+from _torch_stmap_emulation import emulated_stack
 from _torch_stmap_models import FILM_BACK, MODELS
 
 ATOL = 2e-5
@@ -94,6 +95,57 @@ def test_stmap_stack_matches(stack, direction):
     assert float((got - swapped).abs().max()) > 1e-5
     np.testing.assert_array_equal(to_numpy(got[..., 2]), 0.0)
     np.testing.assert_array_equal(to_numpy(got[..., 3]), 1.0)
+
+
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+@pytest.mark.parametrize("stack", list(STACKS))
+def test_stack_through_the_layer_kernel_arithmetic_matches(stack, direction):
+    """The CUDA route of stmap_stack, emulated: the first layer by the
+    kernel's arithmetic from the pixel index, every further layer by its
+    layer variant from the map before it, against the all-plain stack and
+    the JAX stack (its first layer through the Pallas kernel in interpret
+    mode, and all in XLA).  2e-5: float32 against float32 and float64,
+    another operation order in every layer."""
+    t_stack, t_fb = _models("torch", STACKS[stack])
+    j_stack, j_fb = _models("jax", STACKS[stack])
+    got = emulated_stack(t_stack, t_fb, WIDTH, HEIGHT, direction)
+    assert got.shape == (HEIGHT, WIDTH, 4) and got.dtype == np.float32
+    plain = t_stmap.stmap_stack_torch(t_stack, t_fb, WIDTH, HEIGHT,
+                                      direction, device="cpu")
+    np.testing.assert_allclose(got, to_numpy(plain), atol=ATOL)
+    xla = np.asarray(j_stmap.stmap_stack(j_stack, j_fb, WIDTH, HEIGHT,
+                                         direction, use_pallas=False))
+    np.testing.assert_allclose(got, xla, atol=ATOL)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(j_stmap.stmap_stack(j_stack, j_fb, WIDTH, HEIGHT,
+                                                direction))
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+    np.testing.assert_array_equal(got[..., 2:], to_numpy(plain[..., 2:]))
+
+
+def test_stmap_stack_torch_is_the_layers_in_order():
+    """stmap_stack_torch is stmap_torch then stmap_layer_torch a layer,
+    which leaves its input alone; a Passthrough layer changes the map by
+    float32 round-off only; on the CPU stmap_stack is this function."""
+    t_stack, fb = _models("torch", STACKS["three"])
+    for direction in ("distort", "undistort"):
+        order = t_stack if direction == "distort" else t_stack[::-1]
+        first = t_stmap.stmap_torch(order[0], fb, 40, 20, direction,
+                                    device="cpu")
+        want, kept = first, first.clone()
+        for model in order[1:]:
+            want = t_stmap.stmap_layer_torch(want, model, fb, direction)
+        assert torch.equal(first, kept) and want is not first
+        got = t_stmap.stmap_stack_torch(t_stack, fb, 40, 20, direction,
+                                        device="cpu")
+        assert torch.equal(got, want)
+        assert torch.equal(got, t_stmap.stmap_stack(
+            t_stack, fb, 40, 20, direction, device="cpu"))
+        padded = [t_stack[0], t_models.Passthrough(), *t_stack[1:]]
+        np.testing.assert_allclose(
+            to_numpy(t_stmap.stmap_stack_torch(padded, fb, 40, 20, direction,
+                                               device="cpu")),
+            to_numpy(got), atol=1e-6)
 
 
 def test_stmap_stack_edge_cases():
