@@ -24,7 +24,15 @@ out:
     interruption, loaded and resumed to the uninterrupted solve's end;
   * phase 11: a two-layer lens file written, parsed and attached; its
     stack exported as ST maps (first layer through the kernel, second
-    through its layer variant) and an HD image warped through the maps.
+    through its layer variant) and an HD image warped through the maps;
+  * phase 12: the shot's camera, bundles and focal length from nothing
+    but its 2D tracks: api.execute of a Collection with SolverCamera
+    (RANSAC relative pose, triangulation, resection, two Schur BAs), a
+    profile of the bootstrap, and the export of a lens;
+  * phase 13: the lensed shot through api.execute with SolverStandard
+    (automatic root frames, root pass, per-frame pass, global pass),
+    each root-frame strategy, SolverTriangulate with refinement on
+    displaced bundles and SolverBasic, and the export of the solved lens.
 
 Needs one CUDA device; it fails (non-zero exit, no result line) without
 one, when the build or a launch fails, or when any check misses.  It
@@ -114,6 +122,22 @@ STACK_RADIAL = dict(degree2_distortion=0.01, degree2_u=0.002,
 HOOKED_RTOL = 1e-5
 # The image warped through the identity map, see phase_stack_and_warp.
 IDENTITY_WARP_TOL = 1e-3
+
+# Phase 12: the camera solve starts from a camera parked at zeros, bundles
+# at the origin and this focal length (the truth is FOCAL).  On a CPU, at
+# 120 x 64, the port solves all 120 frames and 64 bundles to focal
+# 35.000000 mm and a deviation of 5.3e-05 px with a float32 scene (7.0e-11
+# px with a float64 one, where the JAX package reaches focal 34.999999998
+# mm and 7.0e-11 px; PERF.md).  The limits leave a float32 BA on another
+# device a few hundred ulps, as FOCAL_TOL_MM and ERROR_FINAL_TOL_PX do.
+CAMERA_FOCAL_GUESS = 30.0
+CAMERA_MIN_BUNDLES = 60
+CAMERA_FOCAL_TOL_MM, CAMERA_ERROR_TOL_PX = 1e-3, 1e-3
+# Phase 13: the other root-frame strategies run with roots this far apart
+# (5 roots over the shot's 120 frames); bundles start this far off.
+STRATEGY_ROOT_SPAN = 40
+TRIANGULATE_NOISE = 0.5
+TRIANGULATE_TOL = 1e-3
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bound.
 H100_FP32_FLOPS = 67e12
@@ -760,28 +784,7 @@ def _synced_seconds(device, fn, repeats=3):
 def _profile_iteration(device, tag, body, state):
     """One warm LM iteration under torch.profiler: launches, device time,
     idle share of the wall time and the top 5 kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    wall = _synced_seconds(device, lambda: body(state), repeats=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        body(state)
-        torch.cuda.synchronize(device)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        print("%s one LM iteration %.4f s warm; the profiler saw no device "
-              "time" % (tag, wall))
-        return
-    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    print("%s one LM iteration %.4f s warm; under the profiler: %d kernel "
-          "launches, %.4f s device time, device idle %.1f%% of the warm "
-          "wall time" % (tag, wall, sum(e.count for e in kernels), device_s,
-                         100.0 * max(0.0, 1.0 - device_s / wall)))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        print("%s   %-60.60s %6d x  %.4f s" % (
-            tag, e.key, e.count, e.self_device_time_total / 1e6))
+    _profiled(device, tag, "one LM iteration", lambda: body(state))
 
 
 def phase_production(device):
@@ -1245,6 +1248,376 @@ def time_stack_and_warp(device, stack, fb, image, lens_map):
               HD[0], HD[1], warp_ms, both_ms))
 
 
+def shot_graph(device, frames=FRAMES, bundles=BUNDLES, lens=True,
+               dtype=np.float32):
+    """The shot as an editable scene graph at the truth, its markers
+    carrying the tracks that the port's own evaluate (and, with `lens`,
+    its lens distortion) makes on `device`.  Returns (sg, cam, bundle
+    nodes, marker nodes, raw marker positions (M, F, 2))."""
+    from mayamatchmovesolver_torch.core.constants import FilmFit
+    from mayamatchmovesolver_torch.models import scenelens
+    from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
+    from mayamatchmovesolver_torch.scene.flatscene import marker_fit_scale
+
+    camera, positions = shot(frames, bundles)
+    sg = SceneGraph(frame_range=(1, frames), dtype=dtype)
+    cam = sg.create_camera(
+        "cam", film_fit=FilmFit.HORIZONTAL, render_width=HD[0],
+        render_height=HD[1], focal_length_mm=FOCAL, sensor_width_mm=36.0,
+        sensor_height_mm=24.0, **camera,
+    )
+    if lens:
+        scenelens.attach_lens(sg, cam, scenelens.LENS_MODEL_CLASSIC,
+                              distortion=DISTORTION)
+    bnds, mkrs = [], []
+    for i, (x, y, z) in enumerate(positions):
+        bnds.append(sg.create_bundle("b%d" % i, tx=x, ty=y, tz=z))
+        mkrs.append(sg.create_marker("m%d" % i, camera=cam, bundle=bnds[-1],
+                                     tx=np.zeros(frames),
+                                     ty=np.zeros(frames)))
+    scene, attrs = sg.bake(device=device)
+    fi = torch.arange(frames, device=device)
+    tracks = evaluate(scene, attrs, fi).point_xy
+    if lens:
+        tracks = scenelens.apply_scene_lens(
+            scenelens.bake_scene_lens(sg, device=device), scene, attrs, fi,
+            tracks, scene.mkr_cam_index, direction="distort")
+    fsx, fsy = marker_fit_scale(scene, attrs, fi)
+    raw = torch.stack([tracks[..., 0] / fsx, tracks[..., 1] / fsy],
+                      dim=-1).cpu().numpy()
+    for i, mkr in enumerate(mkrs):
+        sg.set_value(mkr.attr("tx"), raw[i, :, 0])
+        sg.set_value(mkr.attr("ty"), raw[i, :, 1])
+    return sg, cam, bnds, mkrs, raw
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _TimedCalls:
+    """While active, every call of `module.name` for the given names is
+    timed with the device synchronized around it; `calls` collects
+    (name, seconds, args, kwargs)."""
+
+    def __init__(self, module, names, device):
+        self.module, self.names, self.device = module, names, device
+        self.calls, self._real = [], {}
+
+    def __enter__(self):
+        for name in self.names:
+            real = self._real[name] = getattr(self.module, name)
+
+            def timed(*args, _name=name, _real=real, **kwargs):
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = _real(*args, **kwargs)
+                _sync(self.device)
+                self.calls.append((_name, time.perf_counter() - t0, args,
+                                   kwargs))
+                return out
+
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self.module, name, real)
+
+
+def solve_camera_from_tracks(device, frames=FRAMES, bundles=BUNDLES,
+                             dtype=np.float32):
+    """The camera path: the shot's geometry seen through no lens (the
+    SfM has none), a scene that knows nothing but the 2D tracks (camera
+    parked at zeros, focal length CAMERA_FOCAL_GUESS, bundles at the
+    origin), and api.execute of a Collection with SolverCamera on
+    `device`.  Holds the result to the limits and returns (result, the
+    solved focal length, the timed stages)."""
+    import mayamatchmovesolver_torch.api as mmapi
+    from mayamatchmovesolver_torch.core.constants import FilmFit
+    from mayamatchmovesolver_torch.sfm import camerasolve
+
+    tag = "[12 camera]"
+    _, _, _, _, raw = shot_graph(device, frames, bundles, lens=False,
+                                 dtype=dtype)
+    sg = mmapi.SceneGraph(frame_range=(1, frames), dtype=dtype)
+    zeros = np.zeros(frames)
+    cam = sg.create_camera(
+        "cam", film_fit=FilmFit.HORIZONTAL, render_width=HD[0],
+        render_height=HD[1], focal_length_mm=CAMERA_FOCAL_GUESS,
+        sensor_width_mm=36.0, sensor_height_mm=24.0, tx=zeros, ty=zeros,
+        tz=zeros, rx=zeros, ry=zeros, rz=zeros)
+    col = mmapi.Collection(sg)
+    for i in range(bundles):
+        col.add_marker(sg.create_marker(
+            "m%d" % i, camera=cam,
+            bundle=sg.create_bundle("b%d" % i, tx=0.0, ty=0.0, tz=0.0),
+            tx=raw[i, :, 0], ty=raw[i, :, 1]))
+    col.set_solver(mmapi.SolverCamera(range(frames), solve_focal=True))
+    col.options = mmapi.SolverOptions(image_width=float(HD[0]))
+    ok, messages = mmapi.validate(col)
+    if not ok:
+        raise AssertionError("%s not valid: %s" % (tag, messages))
+
+    stages = ("camera_solve", "refine_with_bundle_adjustment")
+    t0 = time.perf_counter()
+    with _TimedCalls(camerasolve, stages, device) as timed:
+        attrs_out, results = mmapi.execute(col, device=device)
+    _sync(device)
+    whole = time.perf_counter() - t0
+    result = results[0]
+    for line in result.as_key_value_strings():
+        if not line.startswith("error_per_frame="):
+            print("%s %s" % (tag, line))
+    focal = float(attrs_out.static_values[
+        cam.attr("focal_length_mm").code // 2])
+    seconds = [t for _, t, _, _ in timed.calls]
+    print("%s %d frames x %d bundles, %s: bootstrap %.3f s, BA with the "
+          "focal length free %.3f s, BA at the solved focal length %.3f s, "
+          "the whole execute %.3f s; focal %.6f mm (true %.1f, guessed %.1f)"
+          % (tag, frames, bundles, attrs_out.static_values.dtype, seconds[0],
+             seconds[1], seconds[2], whole, focal, FOCAL, CAMERA_FOCAL_GUESS))
+    wanted = "camera solve: %d/%d frames, " % (frames, frames)
+    solved_bundles = int(result.reason_string.split(", ")[1].split("/")[0])
+    if (len(results) != 1 or not result.success
+            or [name for name, _, _, _ in timed.calls]
+            != [stages[0], stages[1], stages[1]]
+            or not result.reason_string.startswith(wanted)
+            or solved_bundles < bundles - (BUNDLES - CAMERA_MIN_BUNDLES)
+            or abs(focal - FOCAL) > CAMERA_FOCAL_TOL_MM
+            or not result.error_final <= CAMERA_ERROR_TOL_PX
+            or attrs_out.static_values.device.type
+            != torch.device(device).type):
+        raise AssertionError("%s missed its limits" % tag)
+    return result, focal, timed.calls
+
+
+def _profiled(device, tag, what, fn):
+    """`fn` once warm on the host clock and once under torch.profiler:
+    launches, device time, idle share, and what torch.linalg.eigh costs
+    a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(device)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("%s %s %.4f s warm; the profiler saw no device time" % (
+            tag, what, wall))
+        return
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    print("%s %s %.4f s warm; under the profiler: %d kernel launches, %.4f "
+          "s device time, device idle %.1f%% of the warm wall time" % (
+              tag, what, wall, sum(e.count for e in kernels), device_s,
+              100.0 * max(0.0, 1.0 - device_s / wall)))
+    for e in events:
+        if e.key == "aten::linalg_eigh":
+            print("%s   torch.linalg.eigh: %d calls, %.3f ms of host time "
+                  "and %.3f ms of device time a call (its own kernels and "
+                  "its children's)" % (
+                      tag, e.count, e.cpu_time_total / e.count / 1e3,
+                      e.device_time_total / e.count / 1e3))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        print("%s   %-60.60s %6d x  %.4f s" % (
+            tag, e.key, e.count, e.self_device_time_total / 1e6))
+
+
+def phase_camera(device):
+    """The camera path on the card, then the export of a lens at the
+    smoke's distortion; returns what profile_camera_bootstrap needs."""
+    _, _, calls = solve_camera_from_tracks(device)
+    _check_export("[12 export]", DISTORTION, device)
+    return calls[0][2], calls[0][3]
+
+
+def profile_camera_bootstrap(device, args, kwargs):
+    """The bootstrap of the camera path (camera_solve with the very
+    arguments SolverCamera gave it) under the profiler, after the path
+    (nothing here counts toward it)."""
+    from mayamatchmovesolver_torch.sfm import camerasolve
+
+    _profiled(device, "[12 bootstrap profile]",
+              "camera_solve (RANSAC pair, %d resections, 2 refinement "
+              "rounds)" % (FRAMES - 2),
+              lambda: camerasolve.camera_solve(*args, **kwargs))
+
+
+def shot_collection(device, what, frames=FRAMES, bundles=BUNDLES, **solver):
+    """A Collection over the lensed shot with its start moved off the
+    truth, for the strategy `what`:
+
+      * "standard": CAMERA_OFFSET on every camera channel, the focal
+        length and the distortion off by FOCAL_OFFSET and
+        DISTORTION_OFFSET; all eight are the attributes; SolverStandard;
+      * "triangulate": every bundle off by seeded noise of
+        TRIANGULATE_NOISE; the bundle positions are the attributes;
+        SolverTriangulate with refinement;
+      * "basic": the camera channels off by CAMERA_OFFSET plus seeded
+        noise a frame (PERFRAME_NOISE); they are the attributes;
+        SolverBasic.
+
+    Returns (collection, cam, bundle nodes)."""
+    import mayamatchmovesolver_torch.api as mmapi
+
+    sg, cam, bnds, mkrs, _ = shot_graph(device, frames, bundles)
+    truth, positions = shot(frames, bundles)
+    col = mmapi.Collection(sg)
+    col.add_marker(*mkrs)
+    col.options = mmapi.SolverOptions(image_width=float(HD[0]))
+    noise = np.random.RandomState(11)
+    channels = [cam.attr(ch) for ch in CAMERA_OFFSET]
+    if what == "triangulate":
+        for bnd, position in zip(bnds, positions):
+            for ch, value in zip(("tx", "ty", "tz"), position):
+                sg.set_value(bnd.attr(ch), value + noise.normal(
+                    0.0, TRIANGULATE_NOISE))
+                col.add_attribute(bnd.attr(ch))
+        col.set_solver(mmapi.SolverTriangulate(range(frames), refine=True,
+                                               **solver))
+        return col, cam, bnds
+    for ch, delta in CAMERA_OFFSET.items():
+        moved = truth[ch] + delta
+        if what == "basic":
+            sigma = PERFRAME_NOISE["translate" if ch[0] == "t" else "rotate"]
+            moved = moved + noise.normal(0.0, sigma, frames)
+        sg.set_value(cam.attr(ch), moved)
+    col.add_attribute(*channels)
+    if what == "basic":
+        col.set_solver(mmapi.SolverBasic(range(frames), **solver))
+        return col, cam, bnds
+    sg.set_value(cam.attr("focal_length_mm"), FOCAL + FOCAL_OFFSET)
+    sg.set_value(cam.attr("lens_distortion"), DISTORTION + DISTORTION_OFFSET)
+    col.add_attribute(cam.attr("focal_length_mm"),
+                      cam.attr("lens_distortion"))
+    col.set_solver(mmapi.SolverStandard(range(frames), **solver))
+    return col, cam, bnds
+
+
+def _camera_errors(attrs_out, cam, frames, bundles):
+    """The largest translation and rotation (degrees) error of the
+    solved camera channels against the shot's truth."""
+    truth, _ = shot(frames, bundles)
+    worst = dict(t=0.0, r=0.0)
+    for ch in CAMERA_OFFSET:
+        err = attrs_out.anim_values[cam.attr(ch).code // 2].cpu().numpy() \
+            - truth[ch]
+        worst[ch[0]] = max(worst[ch[0]], float(np.abs(err).max()))
+    return worst["t"], worst["r"]
+
+
+def solve_with_strategies(device, frames=FRAMES, bundles=BUNDLES):
+    """The strategy path on `device`, every solve through api.execute:
+    SolverStandard with automatic root frames and the global pass, the
+    three other root-frame strategies with roots STRATEGY_ROOT_SPAN
+    apart, SolverTriangulate with refinement, SolverBasic.  Holds each to
+    its limits and returns the distortion SolverStandard solved."""
+    import mayamatchmovesolver_torch.api as mmapi
+    from mayamatchmovesolver_torch.solver import rootframe
+    from mayamatchmovesolver_torch.solver.strategies import (
+        RootFrameStrategy,
+        root_frame_schedule,
+    )
+
+    def run(tag, col):
+        t0 = time.perf_counter()
+        attrs_out, results = mmapi.execute(col, device=device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        steps = "; ".join(
+            "%d iterations, stop %d, %.3g -> %.3g px" % (
+                r.iterations, r.stop_reason, r.error_initial, r.error_final)
+            for r in results)
+        print("%s %d results in %.3f s: %s" % (tag, len(results), wall,
+                                               steps))
+        if col.last_results is not results or not all(
+                r.success for r in results):
+            raise AssertionError("%s a step failed: %s" % (
+                tag, [r.reason_string for r in results]))
+        return attrs_out, results
+
+    def roots(span):
+        return rootframe.root_frames_subdivide([0, frames - 1], span)
+
+    tag = "[13 standard]"
+    col, cam, _ = shot_collection(device, "standard", frames, bundles,
+                                  root_frame_indices=None, global_solve=True)
+    attrs_out, results = run(tag, col)
+    codes = dict(focal=cam.attr("focal_length_mm").code // 2,
+                 distortion=cam.attr("lens_distortion").code // 2)
+    print("%s automatic root frames %s: a root pass, the per-frame pass "
+          "over %d frames, the global pass" % (
+              tag, roots(col.solver.root_frame_span), frames))
+    if (len(results) != 3
+            or len(results[1].per_frame_stop_reason) != frames):
+        raise AssertionError("%s expected 3 results" % tag)
+    distortion = _check_recovery(tag, attrs_out, results[-1], codes)
+
+    for strategy in (RootFrameStrategy.FWD_PAIR,
+                     RootFrameStrategy.FWD_PAIR_AND_GLOBAL,
+                     RootFrameStrategy.FWD_INCREMENT):
+        tag = "[13 standard %s]" % strategy
+        col, cam, _ = shot_collection(
+            device, "standard", frames, bundles, root_frame_indices=None,
+            root_frame_span=STRATEGY_ROOT_SPAN, root_frame_strategy=strategy)
+        attrs_out, results = run(tag, col)
+        batches = root_frame_schedule(roots(STRATEGY_ROOT_SPAN), strategy)
+        # No global pass: the lens is what the last root batch left, and
+        # the per-frame pass puts every camera on it.
+        if (len(results) != len(batches) + 1
+                or not results[-1].error_final <= results[0].error_initial):
+            raise AssertionError("%s expected %d results" % (
+                tag, len(batches) + 1))
+
+    tag = "[13 triangulate]"
+    col, cam, bnds = shot_collection(device, "triangulate", frames, bundles)
+    attrs_out, results = run(tag, col)
+    _, positions = shot(frames, bundles)
+    static = attrs_out.static_values.cpu().numpy()
+    off = max(abs(static[bnd.attr(ch).code // 2] - value)
+              for bnd, position in zip(bnds, positions)
+              for ch, value in zip(("tx", "ty", "tz"), position))
+    print("%s %s; bundles within %.3g units of the truth (started %.1f "
+          "off)" % (tag, results[-1].reason_string, off, TRIANGULATE_NOISE))
+    if (len(results) != 2
+            or results[-1].reason_string != "triangulated %d/%d bundles" % (
+                bundles, bundles)
+            or not results[-1].error_final <= ERROR_FINAL_TOL_PX
+            or not off <= TRIANGULATE_TOL):
+        raise AssertionError("%s missed its limits" % tag)
+
+    tag = "[13 basic]"
+    col, cam, _ = shot_collection(device, "basic", frames, bundles)
+    attrs_out, results = run(tag, col)
+    translate, rotate = _camera_errors(attrs_out, cam, frames, bundles)
+    print("%s camera within %.3g units and %.3g degrees of the truth" % (
+        tag, translate, rotate))
+    if (len(results) != 1
+            or len(results[0].per_frame_stop_reason) != frames
+            or any(results[0].per_frame_reverted)
+            or not results[0].error_final <= ERROR_FINAL_TOL_PX
+            or not translate <= PERFRAME_TRANSLATE_TOL
+            or not rotate <= PERFRAME_ROTATE_TOL_DEG):
+        raise AssertionError("%s missed its limits" % tag)
+    return distortion
+
+
+def phase_strategy(device):
+    """The strategy path on the card, then the export of the lens that
+    SolverStandard solved."""
+    _check_export("[13 export]", solve_with_strategies(device), device)
+
+
 def phase_profile(device):
     """Where a warm solve's time goes, after the main path (nothing here
     counts toward it): the whole solve run again, and the normal system
@@ -1331,7 +1704,9 @@ def main():
                        ("per-frame", lambda: phase_per_frame(device)),
                        ("hooks", lambda: phase_hooks_and_checkpoints(device)),
                        ("stack", lambda: phase_stack_and_warp(
-                           device, DISTORTION))):
+                           device, DISTORTION)),
+                       ("camera", lambda: phase_camera(device)),
+                       ("strategy", lambda: phase_strategy(device))):
         for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
@@ -1353,6 +1728,8 @@ def main():
             profile_ba_shot(device)
         if name == "stack":
             time_stack_and_warp(device, *made)
+        if name == "camera":
+            profile_camera_bootstrap(device, *made)
 
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda", "source": STMAP_SOURCE,

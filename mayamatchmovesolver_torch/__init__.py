@@ -6,14 +6,21 @@ against it by the agreement tests in tests/test_torch/.  This package
 imports torch and numpy, never jax.
 
 Ported so far (the lens + camera solve, the Schur BA, the per-frame
-solve, the hooks and checkpoints, and the lens export with warp):
-  core/    — TRS transforms, projection matrix, film fit
+solve, the hooks and checkpoints, the lens export with warp, the solver
+strategies behind the Collection API, and the from-scratch camera solve):
+  api      — Frame, Lens, Collection, validate, execute(device=)
+  core/    — TRS transforms and their decomposition into Euler angles,
+             projection matrix, film fit
   scene/   — AttrBlock, FlatScene + evaluate, SceneGraph builder,
              interop (baked JAX arrays -> port objects)
   models/  — 3DE lens models, SceneLens bindings, attach_lens_file
   solver/  — loss, bounds, SolveProblem, the LM (one problem or a
              batch), the Schur BA and its bridge, solve() with its
-             block-resumable solve loops, solve_per_frame, checkpoint
+             block-resumable solve loops, solve_per_frame, checkpoint,
+             strategies (Step, Basic, Standard, Triangulate, Camera),
+             rootframe, affects, triangulate, linalg (on torch.linalg.eigh)
+  sfm/     — two-view geometry with hypothesis-parallel RANSAC, resection,
+             vanishing-point calibration, the incremental camera solve
   ops/     — ST-map export of a lens or a lens stack; csrc/stmap.cu is
              its Hopper kernel, built and loaded by _kernels.py; image
              warp; lens deformer

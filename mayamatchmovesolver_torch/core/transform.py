@@ -13,8 +13,13 @@ import torch
 
 from mayamatchmovesolver_torch.core.constants import (
     DEGREES_TO_RADIANS,
+    RADIANS_TO_DEGREES,
     ROTATE_ORDER_PERMS,
 )
+
+# Even permutations (cyclic) of (X, Y, Z) get sign +1, odd get -1; used in
+# the closed-form Euler extraction below.
+_PERM_SIGNS = (1.0, 1.0, 1.0, -1.0, -1.0, -1.0)
 
 
 def _axis_rotation_matrices(rx_rad, ry_rad, rz_rad):
@@ -83,6 +88,51 @@ def trs_matrix(tx, ty, tz, rx, ry, rz, sx, sy, sz, rotate_order):
     return torch.cat([top, bottom], dim=-2)
 
 
+def matrix_to_euler(rotation3, rotate_order):
+    """Extract Euler angles (degrees) from a (...,3,3) rotation matrix.
+
+    Inverse of euler_to_rotation_matrix for any of the six Tait-Bryan
+    orders.  Uses the closed-form: for apply order (i, j, k) with parity
+    sign e, theta_j = asin(-e*R[k,i]), theta_i = atan2(e*R[k,j], R[k,k]),
+    theta_k = atan2(e*R[j,i], R[i,i]).
+    (ref behavior: lib/rust/mmscenegraph/src/math/transform.rs:644-688,
+    which goes through quaternions; the result is identical away from
+    gimbal lock.)  rotate_order is an integer or an integer tensor that
+    broadcasts to the leading dims.
+    """
+    device = rotation3.device
+    rotate_order = torch.as_tensor(rotate_order, device=device).long().expand(
+        rotation3.shape[:-2]
+    )
+    perms = torch.as_tensor(ROTATE_ORDER_PERMS, device=device).long()
+    perms = perms[rotate_order]  # (..., 3)
+    sign = torch.tensor(_PERM_SIGNS, dtype=rotation3.dtype,
+                        device=device)[rotate_order]
+    i, j, k = perms[..., 0], perms[..., 1], perms[..., 2]
+
+    def _at(row, col):
+        rows = torch.take_along_dim(
+            rotation3, row[..., None, None], dim=-2
+        ).squeeze(-2)
+        return torch.take_along_dim(rows, col[..., None], dim=-1).squeeze(-1)
+
+    tj = torch.asin(torch.clamp(-sign * _at(k, i), -1.0, 1.0))
+    ti = torch.atan2(sign * _at(k, j), _at(k, k))
+    tk = torch.atan2(sign * _at(j, i), _at(i, i))
+
+    angles_by_axis = torch.zeros(rotation3.shape[:-2] + (3,),
+                                 dtype=rotation3.dtype, device=device)
+    angles_by_axis = _scatter_axis(angles_by_axis, i, j, k, ti, tj, tk)
+    return angles_by_axis * RADIANS_TO_DEGREES
+
+
+def _scatter_axis(out, i, j, k, ti, tj, tk):
+    axis_ids = torch.arange(3, device=out.device)
+    for axis, angle in ((i, ti), (j, tj), (k, tk)):
+        out = torch.where(axis_ids == axis[..., None], angle[..., None], out)
+    return out
+
+
 def inverse3(m):
     """Closed-form (adjugate) inverse of (..., 3, 3) matrices."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
@@ -111,3 +161,17 @@ def affine_inverse(matrix4):
     zero = torch.zeros_like(matrix4[..., 3, :3])
     bottom = torch.cat([zero, torch.ones_like(zero[..., :1])], dim=-1)
     return torch.cat([top, bottom[..., None, :]], dim=-2)
+
+
+def decompose_matrix(matrix4, rotate_order):
+    """Split a (...,4,4) TRS matrix into (t, r_deg, s) tensors, each (...,3).
+
+    Matches the reference's decompose: scale from column norms, rotation
+    from the scale-normalized 3x3 (ref:
+    lib/rust/mmscenegraph/src/math/transform.rs:644-688).
+    """
+    t = matrix4[..., :3, 3]
+    s = torch.linalg.vector_norm(matrix4[..., :3, :3], dim=-2)
+    r3 = matrix4[..., :3, :3] / s[..., None, :]
+    r_deg = matrix_to_euler(r3, rotate_order)
+    return t, r_deg, s

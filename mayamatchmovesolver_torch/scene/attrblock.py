@@ -81,6 +81,41 @@ def gather_attr_values(attrs: AttrBlock, codes, frame_indices):
     return torch.where((codes < 0)[..., None], torch.zeros_like(out), out)
 
 
+def gather_attr_values_static(attrs: AttrBlock, codes, frame_index=0):
+    """Evaluate attribute codes at a single frame; returns (...,) values."""
+    frame = torch.tensor([int(frame_index)], device=codes.device)
+    return gather_attr_values(attrs, codes, frame)[..., 0]
+
+
+def set_attr_values(attrs: AttrBlock, code, values, frame_indices=None):
+    """Write values into one attribute, returning a new AttrBlock on the
+    same device.
+
+    The write-back half of the reference's set_maya_attribute_values
+    (adjust_base.cpp:297-342): a static code takes a scalar; an animated
+    code takes per-frame values at `frame_indices` (all frames when
+    None).  `values` is numbers, a numpy array or a tensor.
+    """
+    code = int(code)
+    if code < 0:
+        raise ValueError("cannot write ATTR_NONE")
+    idx = code_index(code)
+    like = attrs.static_values
+    values = torch.as_tensor(values, dtype=like.dtype, device=like.device)
+    if is_static_code(code):
+        static = attrs.static_values.clone()
+        static[idx] = values.reshape(-1)[0]
+        return dataclasses.replace(attrs, static_values=static)
+    anim = attrs.anim_values.clone()
+    if frame_indices is None:
+        anim[idx, :] = values
+    else:
+        frames = torch.as_tensor(np.asarray(frame_indices, dtype=np.int64),
+                                 device=like.device)
+        anim[idx, frames] = values
+    return dataclasses.replace(attrs, anim_values=anim)
+
+
 class AttrBlockBuilder:
     """Host-side builder accumulating attributes before baking to tensors."""
 

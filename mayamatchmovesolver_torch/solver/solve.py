@@ -226,7 +226,7 @@ def build_problem(
         ),
         line_weight=floats(lines["weight"]),
         marker_frame_mask=torch.as_tensor(
-            np.asarray(marker_frame_mask, dtype=bool), device=device
+            np.array(marker_frame_mask, dtype=bool), device=device
         ),
         lens=lens,
         loss_type=int(options.robust_loss_type),

@@ -217,3 +217,104 @@ def to_numpy(x):
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def jax_sampler(frame, num_hypotheses, sample_size, weights):
+    """The RANSAC draws of the JAX package's camera_solve, by its very
+    calls (sfm/twoview.py: robust_relative_pose under PRNGKey(42) for
+    the anchor pair, robust_resection_pose under PRNGKey(frame) with the
+    weights as probabilities), as the `sampler` of the port's."""
+    import jax
+    import jax.numpy as jnp
+
+    n = len(weights)
+    if frame is None:
+        return np.array(jax_relative_pose_draws(
+            jax.random.PRNGKey(42), n, num_hypotheses, sample_size))
+    return np.array(jax_resection_draws(
+        jax.random.PRNGKey(int(frame)), jnp.asarray(weights, jnp.float64),
+        num_hypotheses, sample_size))
+
+
+def jax_relative_pose_draws(key, n, num_hypotheses, sample_size):
+    """twoview.py:233-237."""
+    import jax
+
+    return jax.vmap(
+        lambda k: jax.random.choice(k, n, shape=(sample_size,),
+                                    replace=False)
+    )(jax.random.split(key, num_hypotheses))
+
+
+def jax_resection_draws(key, weights, num_hypotheses, sample_size):
+    """twoview.py:371-376."""
+    import jax
+    import jax.numpy as jnp
+
+    n = weights.shape[0]
+    probs = weights / jnp.maximum(jnp.sum(weights), 1e-12)
+    return jax.vmap(
+        lambda k: jax.random.choice(k, n, shape=(sample_size,),
+                                    replace=False, p=probs)
+    )(jax.random.split(key, num_hypotheses))
+
+
+CAMERA_SHOT = dict(frames=16, points=24, render=(1500, 1000))
+
+
+def camera_shot_tracks(focal=40.0, seed=3):
+    """A moving-camera shot as tests/test_solver/test_camera_solver.py
+    makes it (16 frames, 24 points, 1500x1000): (tracks (M, F, 2) in
+    screen space, (fit_x, fit_y) marker fit scales), by the JAX
+    package's evaluate."""
+    import jax.numpy as jnp
+
+    from mayamatchmovesolver_tpu.scene import flatscene
+
+    n, m = CAMERA_SHOT["frames"], CAMERA_SHOT["points"]
+    rng = np.random.RandomState(seed)
+    sg = j_scene.SceneGraph(frame_range=(1, n))
+    t = np.linspace(0.0, 1.0, n)
+    cam = sg.create_camera(
+        "cam", tx=6.0 * t, ty=0.5 + 0.4 * np.sin(3.0 * t), tz=9.0 - 2.0 * t,
+        rx=2.0 * np.sin(2.0 * t), ry=-18.0 * t, rz=np.zeros(n),
+        focal_length_mm=focal, sensor_width_mm=36.0, sensor_height_mm=24.0,
+        film_fit=FilmFit.HORIZONTAL, render_width=CAMERA_SHOT["render"][0],
+        render_height=CAMERA_SHOT["render"][1],
+    )
+    pts = np.stack([rng.uniform(-4, 10, m), rng.uniform(-2, 4, m),
+                    rng.uniform(-6, 2, m)], axis=-1)
+    for i, p in enumerate(pts):
+        b = sg.create_bundle("b%d" % i, tx=p[0], ty=p[1], tz=p[2])
+        sg.create_marker("m%d" % i, camera=cam, bundle=b)
+    scene, attrs = sg.bake()
+    ev = j_scene.evaluate(scene, attrs, jnp.arange(n))
+    fsx, fsy = flatscene.marker_fit_scale(scene, attrs, jnp.arange(n))
+    return np.asarray(ev.point_xy), (np.asarray(fsx), np.asarray(fsy))
+
+
+def unsolved_camera_scene(pkg, tracks, fit, focal_guess=35.0,
+                          rotate_order=RotateOrder.XYZ, static_rz=False):
+    """A fresh scene graph in either package: an animated camera parked
+    at zeros with a focal guess, bundles at the origin, markers carrying
+    the tracks.  Returns (sg, cam, markers)."""
+    scene_mod, _ = PACKAGES[pkg]
+    fsx, fsy = fit
+    n = tracks.shape[1]
+    sg = scene_mod.SceneGraph(frame_range=(1, n))
+    zeros = np.zeros(n)
+    cam = sg.create_camera(
+        "cam", rotate_order=rotate_order, tx=zeros, ty=zeros, tz=zeros,
+        rx=zeros, ry=zeros, rz=0.0 if static_rz else zeros,
+        focal_length_mm=focal_guess, sensor_width_mm=36.0,
+        sensor_height_mm=24.0, film_fit=FilmFit.HORIZONTAL,
+        render_width=CAMERA_SHOT["render"][0],
+        render_height=CAMERA_SHOT["render"][1],
+    )
+    markers = []
+    for i in range(tracks.shape[0]):
+        b = sg.create_bundle("b%d" % i, tx=0.0, ty=0.0, tz=0.0)
+        markers.append(sg.create_marker(
+            "m%d" % i, camera=cam, bundle=b,
+            tx=tracks[i, :, 0] / fsx[i], ty=tracks[i, :, 1] / fsy[i]))
+    return sg, cam, markers

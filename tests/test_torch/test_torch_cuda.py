@@ -1,6 +1,8 @@
 """The port's CUDA kernels (the ST map from the pixel index and its
 layer variant from a map), its Schur BA, its per-frame solve, its lens
-stacks and its checkpoints on the card, and the no-fallback rule.
+stacks, its checkpoints, its robust relative pose, its from-scratch
+camera solve and its Collection API on the card, and the no-fallback
+rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -308,3 +310,123 @@ def test_checkpoint_saved_on_cuda_resumes_on_cpu(tmp_path):
     np.testing.assert_allclose(resumed.x.numpy(), truth, atol=1e-3)
     back, _ = t_checkpoint.load_lm_state(path, device="cuda")
     assert back.x.is_cuda and back.jtj.shape == (5, 3, 3)
+
+
+def _shot_module():
+    """chip_smoke, whose shot builders these tests share (it lies at the
+    repository's root, beside tests/)."""
+    import importlib
+    import pathlib
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parents[2])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.cuda
+def test_robust_relative_pose_on_cuda_matches_cpu():
+    """The same minimal samples on both devices, float64: equal inliers,
+    the pose within 1e-8 (the card's eigenvectors differ in sign and in
+    the basis of the essential matrix's double singular value; what
+    leaves the estimator does not depend on them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.sfm import twoview
+
+    rng = np.random.RandomState(3)
+    n = 48
+    x = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                  rng.uniform(4, 9, n)], -1)
+    angle = np.radians(-8.0)
+    r = np.array([[np.cos(angle), 0.0, np.sin(angle)], [0.0, 1.0, 0.0],
+                  [-np.sin(angle), 0.0, np.cos(angle)]])
+    t = np.array([0.95, 0.1, 0.2])
+    x2 = x @ r.T + t / np.linalg.norm(t)
+    pts1, pts2 = x[:, :2] / x[:, 2:], x2[:, :2] / x2[:, 2:]
+    pts2[:8] = rng.uniform(-0.5, 0.5, (8, 2))
+    draws = twoview.draw_samples(n, 96, 8, torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cpu", "cuda"):
+        out[device] = twoview.robust_relative_pose(
+            torch.as_tensor(pts1, device=device),
+            torch.as_tensor(pts2, device=device), sample_indices=draws,
+            num_hypotheses=96, inlier_threshold=1e-6)
+    got, want = out["cuda"], out["cpu"]
+    assert got.rotation.is_cuda and got.rotation.dtype == torch.float64
+    assert torch.equal(got.inliers.cpu(), want.inliers)
+    assert int(got.num_inliers) == 40
+    np.testing.assert_allclose(got.rotation.cpu().numpy(),
+                               want.rotation.numpy(), atol=1e-8)
+    np.testing.assert_allclose(got.translation.cpu().numpy(),
+                               want.translation.numpy(), atol=1e-8)
+    np.testing.assert_allclose(got.rotation.cpu().numpy(), r, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_camera_solve_full_on_cuda_matches_cpu():
+    """A 16 x 24 shot from its tracks alone, float64 with the default
+    seeded draws on both devices: the same frames and points, the focal
+    length within 1e-6 relative, and (the BA frees every camera and
+    bundle, so up to scale) rotations and positions over the path's
+    length at 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.sfm import camerasolve
+
+    smoke = _shot_module()
+    frames, bundles = 16, 24
+    _, _, _, _, raw = smoke.shot_graph("cpu", frames, bundles, lens=False,
+                                       dtype=np.float64)
+    enable = np.ones((bundles, frames), bool)
+    enable[0, 9:] = False
+    enable[1, :6] = False
+    out = {}
+    for device in ("cpu", "cuda"):
+        out[device] = camerasolve.camera_solve_full(
+            raw, enable, focal_length_mm=34.0, image_width=1920.0,
+            solve_focal=True, ba_iterations=30, device=device)
+    (got, got_ba, got_focal), (want, _, want_focal) = out["cuda"], out["cpu"]
+    assert got.rotations.is_cuda and got_ba.cam_params.is_cuda
+    assert got.frame_solved.all() and got.point_valid.sum() >= bundles - 2
+    np.testing.assert_array_equal(got.frame_solved, want.frame_solved)
+    np.testing.assert_array_equal(got.point_valid, want.point_valid)
+    assert abs(got_focal - want_focal) <= 1e-6 * want_focal
+    assert abs(got_focal - smoke.FOCAL) < 1e-4
+    np.testing.assert_allclose(got.rotations.cpu().numpy(),
+                               want.rotations.numpy(), atol=1e-6)
+    paths = [r.positions.cpu().numpy() for r in (got, want)]
+    np.testing.assert_allclose(paths[0] / np.linalg.norm(paths[0][-1]),
+                               paths[1] / np.linalg.norm(paths[1][-1]),
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_execute_of_solver_standard_on_cuda_matches_cpu():
+    """One Collection (12 frames x 10 bundles of the smoke's lensed shot,
+    float64) executed on both devices: SolverStandard's root pass,
+    per-frame pass and global pass give the same number of results and
+    the same attributes within 1e-6, and the lens is recovered."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    import mayamatchmovesolver_torch.api as mmapi
+
+    smoke = _shot_module()
+    col, cam, _ = smoke.shot_collection(
+        "cpu", "standard", 12, 10, root_frame_indices=None,
+        global_solve=True, root_frame_span=4)
+    out = {device: mmapi.execute(col, device=device, dtype=np.float64)
+           for device in ("cpu", "cuda")}
+    (got, got_results), (want, want_results) = out["cuda"], out["cpu"]
+    assert got.static_values.is_cuda
+    assert got.static_values.dtype == torch.float64
+    assert len(got_results) == len(want_results) == 3
+    assert all(r.success for r in got_results)
+    for field in ("static_values", "anim_values"):
+        np.testing.assert_allclose(getattr(got, field).cpu().numpy(),
+                                   getattr(want, field).numpy(), atol=1e-6,
+                                   err_msg=field)
+    focal = float(got.static_values[cam.attr("focal_length_mm").code // 2])
+    # The tracks were made in float32.
+    assert abs(focal - smoke.FOCAL) < 1e-2
