@@ -32,7 +32,13 @@ out:
   * phase 13: the lensed shot through api.execute with SolverStandard
     (automatic root frames, root pass, per-frame pass, global pass),
     each root-frame strategy, SolverTriangulate with refinement on
-    displaced bundles and SolverBasic, and the export of the solved lens.
+    displaced bundles and SolverBasic, and the export of the solved lens;
+  * phase 14: the command line (cli.main, in this process) on the shot's
+    uvtrack files: camera-solve from the 2D tracks, solve per frame and
+    with the Schur BA from an initial camera, reproject, lensdistort at
+    HD in both directions (EXRs read back and held against the plain
+    version), image-warp through the map file and through the lens, and
+    lensdistort once more through python -m in a process of its own.
 
 Needs one CUDA device; it fails (non-zero exit, no result line) without
 one, when the build or a launch fails, or when any check misses.  It
@@ -47,6 +53,7 @@ that is the kernel table as JSON.
 """
 
 import dataclasses
+import functools
 import itertools
 import json
 import statistics
@@ -1678,6 +1685,270 @@ def phase_profile(device):
             e.key, e.count, e.self_device_time_total / 1e6))
 
 
+def write_shot_tracks(device, folder, frames=FRAMES, bundles=BUNDLES):
+    """The shot's 2D tracks (no lens; float64 from the port's evaluate on
+    `device`) written through the port's uvtrack writer as v4 files:
+    tracks_3d.uv with the true bundles in its 3D blocks, tracks.uv
+    without.  Returns the true pixel positions (bundles, frames, 2)."""
+    import os
+
+    from mayamatchmovesolver_torch.io import MarkerData, uvtrack
+    from mayamatchmovesolver_torch.scene import evaluate
+
+    sg, _, _, _, raw = shot_graph(device, frames, bundles, lens=False,
+                                  dtype=np.float64)
+    _, positions = shot(frames, bundles)
+    for name, with_3d in (("tracks_3d.uv", True), ("tracks.uv", False)):
+        data = []
+        for i in range(bundles):
+            md = MarkerData(name="m%d" % i, id=str(i), group_name="shot")
+            for f in range(frames):
+                md.x.set_value(f + 1, float(raw[i, f, 0]) + 0.5)
+                md.y.set_value(f + 1, float(raw[i, f, 1]) + 0.5)
+                md.weight.set_value(f + 1, 1.0)
+                md.enable.set_value(f + 1, 1)
+            if with_3d:
+                md.bundle_x, md.bundle_y, md.bundle_z = (
+                    float(v) for v in positions[i])
+            data.append(md)
+        uvtrack.write(os.path.join(folder, name), data, version=4)
+    scene, attrs = sg.bake(device=device)
+    xy = evaluate(scene, attrs, torch.arange(frames, device=device)).point_xy
+    return ((xy.cpu().numpy() + 0.5) * np.array(HD, np.float64))
+
+
+def _camera_path_errors(solved, camera, align):
+    """The largest position and rotation (degrees) error of a camera path
+    (tx..rz per frame, rotate order XYZ) against the truth; with align
+    after the similarity transform that best maps its positions onto the
+    truth's (Umeyama's least squares), whose scale comes back too."""
+    from mayamatchmovesolver_torch.core.transform import (
+        euler_to_rotation_matrix,
+    )
+
+    def poses(channels):
+        ch = {k: torch.as_tensor(np.asarray(channels[k], np.float64))
+              for k in CAMERA_OFFSET}
+        return (torch.stack([ch["tx"], ch["ty"], ch["tz"]], -1).numpy(),
+                euler_to_rotation_matrix(ch["rx"], ch["ry"], ch["rz"],
+                                         0).numpy())
+
+    (p_s, r_s), (p_t, r_t) = poses(solved), poses(camera)
+    rot, scale, shift = np.eye(3), None, np.zeros(3)
+    if align:
+        a, b = p_s - p_s.mean(0), p_t - p_t.mean(0)
+        u, sig, vt = np.linalg.svd(b.T @ a)
+        d = np.diag([1.0, 1.0, np.sign(np.linalg.det(u @ vt))])
+        rot = u @ d @ vt
+        scale = float(np.trace(np.diag(sig) @ d) / (a ** 2).sum())
+        shift = p_t.mean(0) - scale * rot @ p_s.mean(0)
+    p_s = (1.0 if scale is None else scale) * p_s @ rot.T + shift
+    # The angle of R_s^T R_t from its distance to the identity.
+    dr = np.swapaxes(rot @ r_s, 1, 2) @ r_t - np.eye(3)
+    angle = 2.0 * np.arcsin(np.minimum(
+        1.0, np.linalg.norm(dr, axis=(1, 2)) / (2.0 * np.sqrt(2.0))))
+    return (float(np.abs(p_s - p_t).max()), float(np.degrees(angle).max()),
+            scale)
+
+
+def _cli(tag, device, *argv):
+    """One verb of the port's CLI in this process, on `device`: returns
+    (its stdout lines, its wall seconds with the device synchronized).
+    A verb that stops or exits non-zero fails the path."""
+    import contextlib
+    import io
+
+    from mayamatchmovesolver_torch import cli
+
+    out = io.StringIO()
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv] + ["--device", str(device)])
+    except SystemExit as exc:
+        raise AssertionError("%s %s stopped: %s" % (tag, argv[0], exc))
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    print("%s %s: exit %d, %.3f s; %s" % (
+        tag, argv[0], rc, seconds, lines[-1] if lines else "no output"))
+    if rc != 0:
+        raise AssertionError("%s %s exited %d: %s" % (tag, argv[0], rc,
+                                                       lines))
+    return lines, seconds
+
+
+def drive_cli(device, folder, frames=FRAMES, bundles=BUNDLES, size=HD):
+    """The port's command line on `device` in `folder`, as a pipeline
+    runs it: the shot's tracks solved from nothing (camera-solve), the
+    camera refined per frame and by the Schur BA (solve) from an initial
+    camera, the true bundles reprojected through the solved camera, the
+    lens written as ST-map EXRs in both directions (lensdistort, the
+    kernel on a CUDA device) and a plate warped through the file's map
+    and through the lens (image-warp).  Holds each to its limits and
+    returns {verb: wall seconds}."""
+    import json
+    import os
+
+    from mayamatchmovesolver_torch.io import exr
+
+    tag = "[14 cli]"
+    join = functools.partial(os.path.join, folder)
+    truth_px = write_shot_tracks(device, folder, frames, bundles)
+    camera, positions = shot(frames, bundles)
+    seconds = {}
+
+    _, seconds["camera-solve"] = _cli(
+        tag, device, "camera-solve", "--markers", join("tracks.uv"),
+        "--output", join("sfm.json"))
+    with open(join("sfm.json")) as f:
+        sfm = json.load(f)
+    solved, valid = (sum(sfm["camera"]["frame_solved"]),
+                     sum(sfm["points"]["valid"]))
+    print("%s camera-solve: %d/%d frames solved, %d/%d points valid" % (
+        tag, solved, frames, valid, bundles))
+    if solved != frames or valid != bundles:
+        raise AssertionError("%s camera-solve missed frames or points" % tag)
+
+    with open(join("init.json"), "w") as f:
+        json.dump({"frames": list(range(1, frames + 1)), "camera": {
+            ch: (camera[ch] + CAMERA_OFFSET[ch]).tolist()
+            for ch in CAMERA_OFFSET}}, f)
+    for name, extra in (("per-frame", []),
+                        ("ba_schur", ["--solver-type", "ba_schur"])):
+        out = join("solved_%s.json" % name)
+        lines, seconds["solve " + name] = _cli(
+            tag, device, "solve", "--markers", join("tracks_3d.uv"),
+            "--camera", join("init.json"), "--output", out, *extra)
+        values = dict(line.split("=", 1) for line in lines if "=" in line
+                      and not line.startswith("error_per_frame="))
+        with open(out) as f:
+            solved = json.load(f)["camera"]
+        # The per-frame solve keeps the bundles, so its camera is the
+        # truth's; the BA frees them, and its scene is the truth's up to
+        # one similarity transform (the gauge that no bundle pins down).
+        translate, rotate, scale = _camera_path_errors(
+            solved, camera, align=name == "ba_schur")
+        print("%s solve %s: success=%s, %s iterations, error %s -> %s px; "
+              "camera within %.3g units and %.3g degrees of the truth%s" % (
+                  tag, name, values.get("success"),
+                  values.get("iteration_num"), values.get("error_initial"),
+                  values.get("error_final"), translate, rotate,
+                  "" if scale is None else
+                  " after the similarity (scale %.6f) that best maps it "
+                  "there" % scale))
+        if (values.get("success") != "1"
+                or not float(values["error_final"]) <= ERROR_FINAL_TOL_PX
+                or not translate <= PERFRAME_TRANSLATE_TOL
+                or not rotate <= PERFRAME_ROTATE_TOL_DEG):
+            raise AssertionError("%s solve %s missed its limits" % (tag,
+                                                                    name))
+
+    with open(join("points.json"), "w") as f:
+        json.dump(positions.tolist(), f)
+    _, seconds["reproject"] = _cli(
+        tag, device, "reproject", "--camera", join("solved_per-frame.json"),
+        "--points", join("points.json"), "--space", "pixels", "--output",
+        join("reprojected.json"))
+    with open(join("reprojected.json")) as f:
+        got = np.asarray(json.load(f)["points"])
+    diff = float(np.abs(got - truth_px).max())
+    print("%s reproject: %s pixels, max|diff vs the true tracks| %.3g px" % (
+        tag, got.shape, diff))
+    if got.shape != truth_px.shape or not diff <= ERROR_FINAL_TOL_PX:
+        raise AssertionError("%s reproject left the tracks" % tag)
+
+    lens = ("--distortion", DISTORTION, "--width", size[0], "--height",
+            size[1])
+    for direction in ("distort", "undistort"):
+        _, seconds["lensdistort " + direction] = _cli(
+            tag, device, "lensdistort", *lens, "--direction", direction,
+            "--output", join("st_%s.exr" % direction))
+
+    rng = np.random.RandomState(6)
+    plate = rng.uniform(0.0, 1.0, (size[1], size[0], 3)).astype(np.float32)
+    exr.write_pixels(join("plate.exr"), plate)
+    _, seconds["image-warp --stmap"] = _cli(
+        tag, device, "image-warp", join("plate.exr"), "--stmap",
+        join("st_distort.exr"), "--output", join("warp_map.exr"))
+    _, seconds["image-warp lens"] = _cli(
+        tag, device, "image-warp", join("plate.exr"), "--distortion",
+        DISTORTION, "--output", join("warp_lens.exr"))
+    through_map, _ = exr.read_pixels(join("warp_map.exr"))
+    through_lens, _ = exr.read_pixels(join("warp_lens.exr"))
+    diff = float(np.abs(through_map - through_lens).max())
+    moved = float(np.abs(through_lens[..., :3] - plate).mean())
+    print("%s image-warp: through the file's map and through the lens "
+          "max|diff| %.3g, mean|warped - plate| %.3g" % (tag, diff, moved))
+    if (through_map.shape != (size[1], size[0], 4) or not diff <= TOL
+            or not moved > 1e-3):
+        raise AssertionError("%s the two warps disagree" % tag)
+
+    # The module entry point, in a process of its own.
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mayamatchmovesolver_torch.cli",
+         "lensdistort", *map(str, lens), "--output", join("st_module.exr"),
+         "--device", str(device)],
+        cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    seconds["python -m ... lensdistort"] = time.perf_counter() - t0
+    files = []
+    for name in ("st_distort.exr", "st_module.exr"):
+        if os.path.exists(join(name)):
+            with open(join(name), "rb") as f:
+                files.append(f.read())
+    same = proc.returncode == 0 and len(files) == 2 and files[0] == files[1]
+    print("%s python -m mayamatchmovesolver_torch.cli lensdistort: exit %d, "
+          "%.3f s (with interpreter start), file identical to the "
+          "in-process one: %s" % (tag, proc.returncode,
+                                  seconds["python -m ... lensdistort"], same))
+    if not same:
+        raise AssertionError("%s the module entry point failed: %s" % (
+            tag, proc.stderr[-2000:]))
+    return seconds
+
+
+def phase_cli(device):
+    """The CLI path on the card in a temporary folder, then each
+    lensdistort EXR read back and held against the plain version of the
+    same lens, and one HD map's EXR write and read timed."""
+    import tempfile
+
+    from mayamatchmovesolver_torch import models
+    from mayamatchmovesolver_torch.io import exr
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+
+    tag = "[14 cli]"
+    with tempfile.TemporaryDirectory() as folder:
+        seconds = drive_cli(device, folder)
+        f32 = dict(device=device, dtype=torch.float32)
+        model = models.TdeClassic.create(distortion=DISTORTION, **f32)
+        fb = models.FilmBack.create(width_cm=3.6, height_cm=2.4, **f32)
+        for direction in ("distort", "undistort"):
+            path = "%s/st_%s.exr" % (folder, direction)
+            t0 = time.perf_counter()
+            image, header = exr.read_pixels(path)
+            read_s = time.perf_counter() - t0
+            plain = stmap_mod.stmap_torch(model, fb, HD[0], HD[1], direction,
+                                          device=device).cpu().numpy()
+            diff = float(np.abs(image - plain).max())
+            print("%s lensdistort %s EXR read back %s: max|diff vs plain| "
+                  "%.3g" % (tag, direction, image.shape, diff))
+            if image.shape != (HD[1], HD[0], 4) or not diff <= TOL:
+                raise AssertionError("%s bad %s EXR" % (tag, direction))
+        t0 = time.perf_counter()
+        exr.write_pixels("%s/again.exr" % folder, image)
+        write_s = time.perf_counter() - t0
+        print("%s one %dx%d float32 RGBA ST map as ZIP EXR (%s): write %.3f "
+              "s, read %.3f s" % (tag, HD[0], HD[1], header["compression"],
+                                  write_s, read_s))
+    print("%s verb wall seconds: %s" % (tag, json.dumps(seconds)))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on an NVIDIA GPU",
@@ -1706,7 +1977,8 @@ def main():
                        ("stack", lambda: phase_stack_and_warp(
                            device, DISTORTION)),
                        ("camera", lambda: phase_camera(device)),
-                       ("strategy", lambda: phase_strategy(device))):
+                       ("strategy", lambda: phase_strategy(device)),
+                       ("cli", lambda: phase_cli(device))):
         for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
@@ -1718,10 +1990,15 @@ def main():
                   name, name, launches["stmap"][name],
                   launches["stmap_layer"][name], time.perf_counter() - t0))
         needed = ("stmap", "stmap_layer") if name == "stack" else ("stmap",)
+        # The CLI path's two lensdistort calls and its lens warp launch the
+        # kernel in this process.
+        least = 2 if name == "cli" else 1
         for kernel in needed:
-            if launches[kernel][name] <= 0:
-                raise AssertionError("the %s path never launched the %s "
-                                     "kernel" % (name, kernel))
+            if launches[kernel][name] < least:
+                raise AssertionError("the %s path launched the %s kernel "
+                                     "%d times, fewer than %d" % (
+                                         name, kernel,
+                                         launches[kernel][name], least))
         if name == "dense":
             phase_profile(device)
         if name == "ba":

@@ -7,10 +7,13 @@ imports torch and numpy, never jax.
 
 Ported so far (the lens + camera solve, the Schur BA, the per-frame
 solve, the hooks and checkpoints, the lens export with warp, the solver
-strategies behind the Collection API, and the from-scratch camera solve):
+strategies behind the Collection API, the from-scratch camera solve,
+and the command line with its file formats):
   api      — Frame, Lens, Collection, validate, execute(device=)
+  cli      — the reference's sixteen verbs (python -m
+             mayamatchmovesolver_torch.cli); --device defaults to cuda
   core/    — TRS transforms and their decomposition into Euler angles,
-             projection matrix, film fit
+             projection matrix, film fit, reprojection
   scene/   — AttrBlock, FlatScene + evaluate, SceneGraph builder,
              interop (baked JAX arrays -> port objects)
   models/  — 3DE lens models, SceneLens bindings, attach_lens_file
@@ -24,8 +27,13 @@ strategies behind the Collection API, and the from-scratch camera solve):
   ops/     — ST-map export of a lens or a lens stack; csrc/stmap.cu is
              its Hopper kernel, built and loaded by _kernels.py; image
              warp; lens deformer
-  io/      — the Nuke-script lens file
-  utils/   — the Kalman filter of the sequential per-frame solve
+  io/      — marker files (uvtrack, 3DE, PFTrack, MatchMover) and their
+             registry, EXR (every codec) and image files, the Nuke-script
+             lens file
+  native   — ctypes binding to native/libmmtpu_native.so (the PIZ
+             Huffman codec)
+  utils/   — the Kalman filter of the sequential per-frame solve, batch
+             reprojection, profiling (phase timers, torch.profiler trace)
 """
 
 __version__ = "0.1.0"

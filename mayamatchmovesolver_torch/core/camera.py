@@ -18,6 +18,12 @@ from mayamatchmovesolver_torch.core.constants import (
 )
 
 
+def angle_of_view_radians(film_back_size_mm, focal_length_mm):
+    """(ref: lib/rust/mmscenegraph/src/math/camera.rs:124-131.)  Tensors
+    in, broadcast; the result on their device and in their dtype."""
+    return 2.0 * torch.atan(film_back_size_mm * (0.5 / focal_length_mm))
+
+
 def frustum_coordinates(
     focal_length_mm,
     film_back_width_inch,

@@ -26,4 +26,12 @@ from mayamatchmovesolver_torch.solver.solve import (  # noqa: F401
     solve,
     solve_per_frame,
 )
+from mayamatchmovesolver_torch.solver import ba  # noqa: F401  (module)
+from mayamatchmovesolver_torch.solver import ba_bridge  # noqa: F401
 from mayamatchmovesolver_torch.solver import registry  # noqa: F401
+from mayamatchmovesolver_torch.solver.ba import (  # noqa: F401
+    BAProblem,
+    BAResult,
+    make_ba_problem,
+    solve_ba,
+)

@@ -17,6 +17,7 @@ differentiates it with torch.func.
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from mayamatchmovesolver_torch.scene.attrblock import AttrBlock
@@ -454,3 +455,14 @@ def per_frame_residual_fn(base: SolveProblem, frame_indices, full_mask,
         )
 
     return fn
+
+
+def make_marker_frame_mask(num_markers, num_frames, enabled_pairs=None):
+    """A host (markers, frames) bool mask: every pair, or only the
+    (marker, frame) pairs given."""
+    if enabled_pairs is None:
+        return np.ones((num_markers, num_frames), dtype=bool)
+    mask = np.zeros((num_markers, num_frames), dtype=bool)
+    for m, f in enabled_pairs:
+        mask[m, f] = True
+    return mask

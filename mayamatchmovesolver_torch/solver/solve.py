@@ -12,6 +12,7 @@ options that the port does not have yet raise NotImplementedError naming
 the ROADMAP item that brings them.
 """
 
+import contextlib
 import dataclasses
 import enum
 import time
@@ -28,6 +29,7 @@ from mayamatchmovesolver_torch.solver import problem as problem_mod
 from mayamatchmovesolver_torch.solver import registry as registry_mod
 from mayamatchmovesolver_torch.solver import results as results_mod
 from mayamatchmovesolver_torch.solver.loss import RobustLossType
+from mayamatchmovesolver_torch.utils import profiler as profiler_mod
 
 
 class FrameSolveMode(enum.IntEnum):
@@ -94,7 +96,9 @@ class SolverOptions:
     # larger process variance lets the prediction drift faster.
     kalman_measurement_variance: float = 1.0
     kalman_process_variance: float = 1.0
-    # The reference's profiler trace; not ported yet, solve() refuses it.
+    # Capture a torch.profiler trace of the solve into this directory
+    # (utils/profiler.py::xla_trace; the MProfiler-scope counterpart,
+    # ref: adjust_solveFunc.cpp:573-579).
     profile_dir: Optional[str] = None
 
 
@@ -131,11 +135,6 @@ def _refuse_unported(options: SolverOptions):
             "solver_type %r (%s) is not ported to torch yet: the sharded "
             "backends come with ROADMAP Queue 1 item 14"
             % (st, registry_mod.solver_name(st))
-        )
-    if options.profile_dir is not None:
-        raise NotImplementedError(
-            "SolverOptions.profile_dir needs utils/profiler.py, which is "
-            "not ported to torch yet (ROADMAP Queue 1 item 15)"
         )
 
 
@@ -480,18 +479,22 @@ def solve(
             fallback_note = " (ba fallback to dense: %s)" % reason
             solver_type = registry_mod.SOLVER_TYPE_LM_DENSE
 
+    profile_ctx = (
+        profiler_mod.xla_trace(options.profile_dir)
+        if options.profile_dir else contextlib.nullcontext()
+    )
     t0 = time.perf_counter()
-    if bridge is not None:
-        lm_result, attrs_out, aux0, aux1, interrupted = _solve_problem_ba(
-            problem, bridge, options
-        )
-    else:
-        (lm_result, attrs_out, aux0, aux1,
-         interrupted) = _solve_problem_chunked(
-            problem, _lm_config(options), options
-        )
-    if attrs_out.static_values.is_cuda:
-        torch.cuda.synchronize(attrs_out.static_values.device)
+    with profile_ctx:
+        if bridge is not None:
+            (lm_result, attrs_out, aux0, aux1,
+             interrupted) = _solve_problem_ba(problem, bridge, options)
+        else:
+            (lm_result, attrs_out, aux0, aux1,
+             interrupted) = _solve_problem_chunked(
+                problem, _lm_config(options), options
+            )
+        if attrs_out.static_values.is_cuda:
+            torch.cuda.synchronize(attrs_out.static_values.device)
     solve_seconds = time.perf_counter() - t0
 
     lm_result, aux0, aux1 = (

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the ST map from the pixel index and its
 layer variant from a map), its Schur BA, its per-frame solve, its lens
 stacks, its checkpoints, its robust relative pose, its from-scratch
-camera solve and its Collection API on the card, and the no-fallback
-rule.
+camera solve, its Collection API and its command line (lensdistort,
+reproject) on the card, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -430,3 +430,60 @@ def test_execute_of_solver_standard_on_cuda_matches_cpu():
     focal = float(got.static_values[cam.attr("focal_length_mm").code // 2])
     # The tracks were made in float32.
     assert abs(focal - smoke.FOCAL) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_cli_lensdistort_on_cuda_writes_the_kernels_map(tmp_path, direction):
+    """cli lensdistort --device cuda: one kernel launch, and the EXR it
+    writes equals the plain version of the same lens within 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch import cli, models
+    from mayamatchmovesolver_torch.io import exr
+
+    out = str(tmp_path / "st.exr")
+    launches = t_stmap.stmap_cuda.launches
+    assert cli.main(["lensdistort", "--distortion", "0.08", "--width", "640",
+                     "--height", "360", "--direction", direction,
+                     "--output", out, "--device", "cuda"]) == 0
+    assert t_stmap.stmap_cuda.launches == launches + 1
+    f32 = dict(device="cuda", dtype=torch.float32)
+    want = t_stmap.stmap_torch(
+        models.TdeClassic.create(distortion=0.08, **f32),
+        models.FilmBack.create(width_cm=3.6, height_cm=2.4, **f32),
+        640, 360, direction, device="cuda").cpu().numpy()
+    got, _ = exr.read_pixels(out)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cli_reproject_on_cuda_matches_cpu(tmp_path):
+    """cli reproject --device cuda equals the CPU run at 1e-10 (float64
+    on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    import json
+
+    from mayamatchmovesolver_torch import cli
+
+    rng = np.random.RandomState(4)
+    cam = {"frames": list(range(1, 9)), "camera": {
+        c: rng.uniform(-10, 10, 8).tolist() if c[0] == "r"
+        else (rng.uniform(-1, 1, 8) + (10.0 if c == "tz" else 0.0)).tolist()
+        for c in ("tx", "ty", "tz", "rx", "ry", "rz")}}
+    with open(tmp_path / "cam.json", "w") as f:
+        json.dump(cam, f)
+    with open(tmp_path / "pts.json", "w") as f:
+        json.dump(rng.uniform(-2, 2, (16, 3)).tolist(), f)
+    results = {}
+    for device in ("cpu", "cuda"):
+        out = str(tmp_path / ("%s.json" % device))
+        assert cli.main(["reproject", "--camera", str(tmp_path / "cam.json"),
+                         "--points", str(tmp_path / "pts.json"), "--space",
+                         "pixels", "--output", out, "--device", device]) == 0
+        with open(out) as f:
+            results[device] = np.asarray(json.load(f)["points"])
+    assert results["cuda"].shape == (16, 8, 2)
+    np.testing.assert_allclose(results["cuda"], results["cpu"], rtol=0,
+                               atol=1e-10)

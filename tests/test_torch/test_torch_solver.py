@@ -205,7 +205,6 @@ def test_refusal_string_matches(lens_focal):
 @pytest.mark.parametrize("option,value,match", [
     ("solver_type", t_registry.SOLVER_TYPE_LM_SHARDED, "item 14"),
     ("solver_type", t_registry.SOLVER_TYPE_BA_SHARDED, "item 14"),
-    ("profile_dir", "trace", "item 15"),
 ])
 def test_solve_refuses_unported_options(lens_focal, option, value, match):
     _, (scene, attrs, lens, sa, _) = lens_focal
