@@ -38,7 +38,14 @@ out:
     with the Schur BA from an initial camera, reproject, lensdistort at
     HD in both directions (EXRs read back and held against the plain
     version), image-warp through the map file and through the lens, and
-    lensdistort once more through python -m in a process of its own.
+    lensdistort once more through python -m in a process of its own;
+  * phase 15: the artist tools on the lensed shot (tools/): screen-space
+    trail and rig bake, center 2D, reparent under animated and static
+    transforms and back, origin frame and scene scale, ray-cast of the
+    64 markers onto a 131,072-triangle plane, marker deform and its
+    removal, average / duplicate / convert / reproject markers, copy and
+    paste of the 64 markers, the camera file, the deviation files of a
+    solve, each held to an invariant, and the export of the lens.
 
 Needs one CUDA device; it fails (non-zero exit, no result line) without
 one, when the build or a launch fails, or when any check misses.  It
@@ -145,6 +152,22 @@ CAMERA_FOCAL_TOL_MM, CAMERA_ERROR_TOL_PX = 1e-3, 1e-3
 STRATEGY_ROOT_SPAN = 40
 TRIANGULATE_NOISE = 0.5
 TRIANGULATE_TOL = 1e-3
+
+# Phase 15: the artist tools on the shot (float32 scenes).  Pixels are
+# marker-space differences times the plate width.  The largest misses of
+# a float32 CPU rehearsal at full size (phase_tools("cpu")) are noted
+# beside each tolerance.
+TOOLS_PX_TOL = 1e-3  # reprojections and tracks (4.6e-4: ray-cast hits)
+TOOLS_WORLD_RTOL = 1e-4  # world positions, of the camera path (7.4e-7)
+TOOLS_RAY_TOL = 1e-4  # ray-cast hits, scene units (5.7e-6)
+TOOLS_IDENTITY_TOL = 1e-5  # origin-frame camera, camera file (1.9e-6)
+TOOLS_MIN_DEFORM_PX = 1.0  # the lens must move the tracks this far (10)
+TOOLS_ORIGIN_FRAME, TOOLS_SCENE_SCALE, TOOLS_RESCALE = 60, 2.0, 0.5
+TOOLS_RAY_FRAMES = (0, 60, 119)
+# The ray-cast mesh: a square grid of 256 x 256 quads (131,072
+# triangles) facing the camera at the bundles' median depth, its half
+# size this many times that depth.
+TOOLS_MESH_QUADS, TOOLS_MESH_HALF = 256, 2.0
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bound.
 H100_FP32_FLOPS = 67e12
@@ -1256,11 +1279,13 @@ def time_stack_and_warp(device, stack, fb, image, lens_map):
 
 
 def shot_graph(device, frames=FRAMES, bundles=BUNDLES, lens=True,
-               dtype=np.float32):
+               dtype=np.float32, **camera_extra):
     """The shot as an editable scene graph at the truth, its markers
     carrying the tracks that the port's own evaluate (and, with `lens`,
-    its lens distortion) makes on `device`.  Returns (sg, cam, bundle
-    nodes, marker nodes, raw marker positions (M, F, 2))."""
+    its lens distortion) makes on `device`; `camera_extra` are further
+    attribute values of the camera (per-frame arrays animate them).
+    Returns (sg, cam, bundle nodes, marker nodes, raw marker positions
+    (M, F, 2))."""
     from mayamatchmovesolver_torch.core.constants import FilmFit
     from mayamatchmovesolver_torch.models import scenelens
     from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
@@ -1271,7 +1296,7 @@ def shot_graph(device, frames=FRAMES, bundles=BUNDLES, lens=True,
     cam = sg.create_camera(
         "cam", film_fit=FilmFit.HORIZONTAL, render_width=HD[0],
         render_height=HD[1], focal_length_mm=FOCAL, sensor_width_mm=36.0,
-        sensor_height_mm=24.0, **camera,
+        sensor_height_mm=24.0, **camera, **camera_extra,
     )
     if lens:
         scenelens.attach_lens(sg, cam, scenelens.LENS_MODEL_CLASSIC,
@@ -1949,6 +1974,385 @@ def phase_cli(device):
     print("%s verb wall seconds: %s" % (tag, json.dumps(seconds)))
 
 
+def tools_graph(device):
+    """The lensed shot for the tools: its camera's film offsets animated
+    (zeros, so center-2D writes them frame by frame) and its scale
+    channels animated (ones, so a reparent under an animated transform
+    may write them)."""
+    zeros, ones = np.zeros(FRAMES), np.ones(FRAMES)
+    return shot_graph(device, lens=True, lens_offset_x_mm=zeros,
+                      lens_offset_y_mm=zeros, sx=ones, sy=ones, sz=ones)
+
+
+def _px(a, b):
+    """The largest marker-space difference in pixels of the plate."""
+    return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max()) * (
+        HD[0])
+
+
+def _evaluated(sg, device, frames=None):
+    from mayamatchmovesolver_torch.scene import evaluate
+
+    scene, attrs = sg.bake(device=device)
+    fi = torch.arange(FRAMES, device=device) if frames is None else (
+        torch.as_tensor(frames, device=device))
+    return scene, attrs, evaluate(scene, attrs, fi)
+
+
+def _check(tag, what, value, limit, above=False):
+    print("%s %s %.3g (%s %.3g)" % (tag, what, value,
+                                    "above" if above else "limit", limit))
+    if not (value > limit if above else value <= limit):
+        raise AssertionError("%s %s %g, limit %g" % (tag, what, value,
+                                                     limit))
+
+
+def _camera_path_length(ev):
+    path = ev.cam_world[0, :, :3, 3]
+    return float(torch.linalg.vector_norm(path[1:] - path[:-1],
+                                          dim=-1).sum())
+
+
+def tools_screen_space(device, tag="[15 tools screen space]"):
+    """The motion trail of every bundle equals the engine's reprojection;
+    the screen-space rig bake and unbake return the bundles."""
+    from mayamatchmovesolver_torch.tools import screenspace
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    scene, attrs, ev = _evaluated(sg, device)
+    fi = torch.arange(FRAMES, device=device)
+    index = torch.as_tensor([b.index for b in bnds], device=device)
+    xy, depth = screenspace.motion_trail(scene, attrs, fi, index)
+    _check(tag, "motion trail vs evaluate, px", _px(xy, ev.point_xy),
+           TOOLS_PX_TOL)
+    rig = screenspace.screen_space_rig_bake(scene, attrs, fi, index)
+    world = screenspace.screen_space_rig_unbake(
+        scene, attrs, fi, rig["screen_x"], rig["screen_y"], rig["depth"])
+    length = _camera_path_length(ev)
+    _check(tag, "rig bake/unbake vs world, of the camera path",
+           float((world - ev.bnd_world_point).abs().max()) / length,
+           TOOLS_WORLD_RTOL)
+
+
+def tools_center(device, tag="[15 tools center 2d]"):
+    """Center 2D on bundle 0 over every frame: the animated film
+    offsets put it at the image centre."""
+    from mayamatchmovesolver_torch.tools import centertwodee
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    _, _, ev = _evaluated(sg, device)
+    target = ev.bnd_world_point[0, 0].cpu().numpy()
+    _check(tag, "bundle 0 before, px", _px(ev.point_xy[0], 0.0), 10.0,
+           above=True)
+    off_x, off_y = centertwodee.apply_center(
+        sg, cam, np.arange(FRAMES), target, device=device)
+    _check(tag, "offset x spread over the frames, mm", float(np.ptp(off_x)),
+           1e-3, above=True)
+    _, _, ev = _evaluated(sg, device)
+    _check(tag, "bundle 0 after, px", _px(ev.point_xy[0], 0.0),
+           TOOLS_PX_TOL)
+
+
+def _world_xy(sg, device):
+    _, _, ev = _evaluated(sg, device)
+    return ev.tfm_world, ev.point_xy, _camera_path_length(ev)
+
+
+def tools_reparent(device, tag="[15 tools reparent]"):
+    """The camera (animated channels) under an animated transform, the 64
+    bundles (static channels) under a static, rotated and offset one,
+    then all back to the world: world matrices and reprojections kept."""
+    from mayamatchmovesolver_torch.tools import reparent
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    t = np.linspace(0.0, 1.0, FRAMES)
+    rig = sg.create_transform(
+        "rig", tx=0.5 * t, ty=-0.2 * t, tz=0.3 * np.sin(4.0 * t),
+        rx=3.0 * t, ry=-6.0 * t, rz=2.0 * np.sin(3.0 * t),
+        sx=np.ones(FRAMES), sy=np.ones(FRAMES), sz=np.ones(FRAMES))
+    base = sg.create_transform("base", tx=1.0, ty=-0.5, tz=2.0, rx=10.0,
+                               ry=-20.0, rz=5.0)
+    world0, xy0, length = _world_xy(sg, device)
+    nodes = [cam.index] + [b.index for b in bnds]
+    for label, cam_parent, bnd_parent in (("under the rigs", rig, base),
+                                          ("back to the world", None, None)):
+        reparent.reparent(sg, cam, cam_parent, device=device)
+        for b in bnds:
+            reparent.reparent(sg, b, bnd_parent, device=device)
+        world, xy, _ = _world_xy(sg, device)
+        _check(tag, "%s: world matrices, of the camera path" % label,
+               float((world[nodes] - world0[nodes]).abs().max()) / length,
+               TOOLS_WORLD_RTOL)
+        _check(tag, "%s: reprojection, px" % label, _px(xy, xy0),
+               TOOLS_PX_TOL)
+
+
+def tools_origin_and_scale(device, tag="[15 tools origin frame, scale]"):
+    """The camera at frame 60 to the origin with the scene scaled by 2,
+    then the scene scaled by 0.5: the reprojections are kept."""
+    from mayamatchmovesolver_torch.tools import originframe, scaleadjust
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    _, xy0, _ = _world_xy(sg, device)
+    originframe.set_camera_origin_frame(
+        sg, cam, origin_frame_index=TOOLS_ORIGIN_FRAME,
+        scene_scale=TOOLS_SCENE_SCALE, device=device)
+    world, xy, _ = _world_xy(sg, device)
+    eye = torch.eye(4, dtype=world.dtype, device=world.device)
+    _check(tag, "camera at frame %d vs identity" % TOOLS_ORIGIN_FRAME,
+           float((world[cam.index, TOOLS_ORIGIN_FRAME] - eye).abs().max()),
+           TOOLS_IDENTITY_TOL)
+    _check(tag, "origin frame: reprojection, px", _px(xy, xy0),
+           TOOLS_PX_TOL)
+    scaleadjust.apply_scene_scale(sg, TOOLS_RESCALE, device=device)
+    _, xy, _ = _world_xy(sg, device)
+    _check(tag, "scene scale: reprojection, px", _px(xy, xy0),
+           TOOLS_PX_TOL)
+
+
+def tools_mesh(centre, right, up, half, quads=TOOLS_MESH_QUADS):
+    """A square grid of quads x quads on the plane through `centre`
+    spanned by `right` and `up` (numpy float64), two triangles a quad."""
+    side = np.linspace(-half, half, quads + 1)
+    s, t = np.meshgrid(side, side)
+    vertices = (centre + s.reshape(-1, 1) * right
+                + t.reshape(-1, 1) * up)
+    n = quads + 1
+    a = (np.arange(quads)[:, None] * n + np.arange(quads)[None, :]).ravel()
+    triangles = np.concatenate([
+        np.stack([a, a + 1, a + n + 1], -1),
+        np.stack([a, a + n + 1, a + n], -1)])
+    return vertices, triangles
+
+
+def tools_raycast(device, tag="[15 tools ray-cast]"):
+    """The 64 markers' rays at frames 0, 60 and 119 onto a 131,072-
+    triangle plane at the bundles' median depth: every ray hits, on the
+    plane, at the closed-form ray-plane point, reprojecting onto its
+    marker; a copy behind the camera gets no hit; the bundles move to
+    the frame-60 hits.  Returns (ms of one call, peak device bytes)."""
+    from mayamatchmovesolver_torch.scene import evaluate
+    from mayamatchmovesolver_torch.tools import raycast, screenspace
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    scene, attrs, ev = _evaluated(sg, device)
+    pose = ev.cam_world[0, TOOLS_ORIGIN_FRAME].double().cpu().numpy()
+    eye, right, up, forward = pose[:3, 3], pose[:3, 0], pose[:3, 1], -pose[
+        :3, 2]
+    depths = (ev.bnd_world_point[:, TOOLS_ORIGIN_FRAME].double().cpu()
+              .numpy() - eye) @ forward
+    depth = float(np.median(depths))
+    centre = eye + depth * forward
+    meshes = {}
+    for side, c in (("front", centre), ("behind", eye - depth * forward)):
+        v, tri = tools_mesh(c, right, up, TOOLS_MESH_HALF * depth)
+        meshes[side] = (torch.as_tensor(v, dtype=torch.float32,
+                                        device=device),
+                        torch.as_tensor(tri, device=device))
+    print("%s mesh: %d triangles at depth %.3f" % (
+        tag, meshes["front"][1].shape[0], depth))
+    timed = {}
+    for frame in TOOLS_RAY_FRAMES:
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        hits, ok = raycast.raycast_markers_to_mesh(scene, attrs, frame,
+                                                   *meshes["front"])
+        _sync(device)
+        timed[frame] = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(device)
+                if torch.device(device).type == "cuda" else 0)
+        _check(tag, "frame %d: rays that miss" % frame,
+               float((~ok).sum()), 0)
+        h = hits.double().cpu().numpy()
+        _check(tag, "frame %d: distance off the plane" % frame,
+               float(np.abs((h - centre) @ forward).max()), TOOLS_RAY_TOL)
+        o, d = (x[:, 0].double().cpu().numpy()
+                for x in raycast.marker_rays(scene, attrs, [frame]))
+        t = ((centre - o) @ forward) / (d @ forward)
+        _check(tag, "frame %d: hits vs closed-form ray-plane" % frame,
+               float(np.abs(o + t[:, None] * d - h).max()), TOOLS_RAY_TOL)
+        ev1 = evaluate(scene, attrs, torch.as_tensor([frame], device=device))
+        xy, _ = screenspace.world_to_screen(ev1, hits[:, None, :])
+        _check(tag, "frame %d: hits reprojected vs markers, px" % frame,
+               _px(xy, ev1.marker_xy), TOOLS_PX_TOL)
+        _, behind = raycast.raycast_markers_to_mesh(scene, attrs, frame,
+                                                    *meshes["behind"])
+        _check(tag, "frame %d: hits on the mesh behind" % frame,
+               float(behind.sum()), 0)
+    print("%s raycast_markers_to_mesh ms (64 rays x %d triangles): %s; "
+          "peak device memory %.1f MiB" % (
+              tag, meshes["front"][1].shape[0],
+              json.dumps({f: round(ms, 3) for f, ms in timed.items()}),
+              peak / 2**20))
+    want = raycast.raycast_markers_to_mesh(scene, attrs, TOOLS_ORIGIN_FRAME,
+                                           *meshes["front"])[0]
+    hit = raycast.apply_raycast_bundles(sg, TOOLS_ORIGIN_FRAME,
+                                        *meshes["front"], device=device)
+    _check(tag, "apply: bundles not moved", float((~hit).sum()), 0)
+    _, _, ev = _evaluated(sg, device, [TOOLS_ORIGIN_FRAME])
+    _check(tag, "apply: bundles vs the hits",
+           float((ev.bnd_world_point[:, 0] - want).abs().max()),
+           TOOLS_RAY_TOL)
+    return timed[TOOLS_ORIGIN_FRAME], peak
+
+
+def tools_deform(device, tag="[15 tools deform]"):
+    """The lens applied to every track, then removed."""
+    from mayamatchmovesolver_torch.models import scenelens
+    from mayamatchmovesolver_torch.scene import evaluate
+    from mayamatchmovesolver_torch.tools import deformmarker
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    scene, attrs, ev = _evaluated(sg, device)
+    lens = scenelens.bake_scene_lens(sg, device=device)
+    fi = torch.arange(FRAMES, device=device)
+    deformed = deformmarker.deform_markers(scene, attrs, lens, fi,
+                                           direction="distort")
+    moved = evaluate(scene, deformed, fi).marker_xy
+    _check(tag, "deform moved the tracks, px", _px(moved, ev.marker_xy),
+           TOOLS_MIN_DEFORM_PX, above=True)
+    restored = deformmarker.remove_marker_deform(scene, deformed, lens, fi)
+    _check(tag, "deform then remove vs the tracks, px",
+           _px(evaluate(scene, restored, fi).marker_xy, ev.marker_xy),
+           TOOLS_PX_TOL)
+
+
+def _track(sg, marker):
+    return np.stack([np.asarray(sg.get_value(marker.attr(ch)), np.float64)
+                     for ch in ("tx", "ty")], -1)
+
+
+def tools_markers_and_files(device, folder, tag="[15 tools markers]"):
+    """Average, duplicate, convert and reproject markers against their
+    closed forms; copy and paste the 64 markers; the camera file; the
+    deviation files of a solve of the shot."""
+    from mayamatchmovesolver_torch.io import camerafile
+    from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
+    from mayamatchmovesolver_torch.tools import (
+        copypastemarker,
+        deviation,
+        markertools,
+        screenspace,
+    )
+
+    sg, cam, bnds, mkrs, raw = tools_graph(device)
+    avg = markertools.create_average_marker(sg, mkrs[:4], "avg",
+                                            device=device)
+    _check(tag, "average of 4 vs their mean, px",
+           float(np.abs(_track(sg, avg) - raw[:4].mean(0)).max()) * HD[0],
+           TOOLS_PX_TOL)
+    dup = markertools.duplicate_marker(sg, mkrs[5], device=device)
+    _check(tag, "duplicate vs its marker, px",
+           float(np.abs(_track(sg, dup) - raw[5]).max()) * HD[0],
+           TOOLS_PX_TOL)
+
+    scene, attrs, ev = _evaluated(sg, device)
+    fi = torch.arange(FRAMES, device=device)
+    xy, behind = markertools.marker_from_transform(scene, attrs, fi,
+                                                   bnds[7].index)
+    # Closed form, float64 on the host: the pinhole through the film
+    # back's width (horizontal fit), y scaled by the plate's aspect.
+    cam_world = ev.cam_world[0].double().cpu().numpy()
+    point = np.append(ev.bnd_world_point[7, 0].double().cpu().numpy(), 1.0)
+    p = np.einsum("fij,j->fi", np.linalg.inv(cam_world), point)
+    scale = FOCAL / 36.0 / -p[:, 2]
+    want = np.stack([p[:, 0] * scale, p[:, 1] * scale * HD[0] / HD[1]], -1)
+    _check(tag, "marker from transform vs the pinhole, px",
+           _px(xy.double().cpu(), want), TOOLS_PX_TOL)
+    if bool(behind.any()):
+        raise AssertionError("%s bundle 7 behind the camera" % tag)
+
+    frame = 30
+    new = markertools.reproject_bundle(scene, attrs, fi, 9,
+                                       frame_for_depth=frame)
+    ev1 = evaluate(scene, attrs, torch.as_tensor([frame], device=device))
+    new_xy, new_depth = screenspace.world_to_screen(
+        ev1, torch.as_tensor(new, device=device))
+    _, old_depth = screenspace.world_to_screen(ev1, ev1.bnd_world_point[9])
+    _check(tag, "reprojected bundle vs its marker ray, px",
+           _px(new_xy[0], ev1.marker_xy[9, 0]), TOOLS_PX_TOL)
+    _check(tag, "reprojected bundle's depth change, relative",
+           float(abs(new_depth[0] / old_depth[0] - 1.0)), 1e-5)
+
+    text = copypastemarker.copy_markers_to_string(sg, mkrs)
+    sg2 = SceneGraph(frame_range=(1, FRAMES), dtype=np.float32)
+    cam2 = sg2.create_camera("cam2", render_width=HD[0],
+                             render_height=HD[1])
+    pasted = copypastemarker.paste_markers(sg2, cam2, text)
+    if len(pasted) != len(mkrs):
+        raise AssertionError("%s pasted %d markers" % (tag, len(pasted)))
+    _check(tag, "%d pasted tracks vs copied, px" % len(pasted),
+           max(float(np.abs(_track(sg2, m2) - _track(sg, m)).max())
+               for (m2, _), m in zip(pasted, mkrs)) * HD[0],
+           TOOLS_PX_TOL)
+
+    path = "%s/cam%s" % (folder, camerafile.EXT)
+    camerafile.write_camera(path, cam, attrs, sg.frame_range,
+                            image={"width": HD[0], "height": HD[1]})
+    sg3 = SceneGraph(frame_range=(1, FRAMES), dtype=np.float32)
+    cam3 = camerafile.create_camera_from_file(sg3, path)
+    bnd3 = sg3.create_bundle("b")
+    sg3.create_marker("m", camera=cam3, bundle=bnd3)
+    _, _, ev3 = _evaluated(sg3, device)
+    _check(tag, "camera file: camera matrices at %d frames" % FRAMES,
+           float((ev3.cam_world[0] - ev.cam_world[0]).abs().max()),
+           TOOLS_IDENTITY_TOL)
+    _check(tag, "camera file: projection matrices",
+           float((ev3.cam_proj[0] - ev.cam_proj[0]).abs().max()),
+           TOOLS_IDENTITY_TOL)
+
+    _, result, _, _ = solve_shot(device)
+    stats = deviation.deviation_stats(result)
+    deviation.write_deviation_json("%s/deviation.json" % folder, result)
+    frames, names = deviation.write_deviation_csv(
+        "%s/deviation.csv" % folder, result)
+    with open("%s/deviation.json" % folder) as f:
+        written = json.load(f)["stats"]
+    finite = [n for n, v in written.items()
+              if np.isfinite(v["average"]) and np.isfinite(v["maximum"])]
+    print("%s deviation of a solve of the shot: %d markers, %d frames, "
+          "worst average %.3g px" % (
+              tag, len(finite), len(frames),
+              max(v["average"] for v in stats.values())))
+    if len(finite) != BUNDLES or len(names) != BUNDLES:
+        raise AssertionError("%s deviation statistics of %d markers" % (
+            tag, len(finite)))
+
+
+def phase_tools(device):
+    """The artist tools on the shot, each step timed on the host clock
+    with the device synchronized, then the lens's ST-map export (through
+    the kernel on the card).  Returns the step seconds."""
+    import tempfile
+
+    seconds = {}
+
+    def step(name, fn, *args):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn(device, *args)
+        _sync(device)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    step("screen space", tools_screen_space)
+    step("center 2d", tools_center)
+    step("reparent", tools_reparent)
+    step("origin frame, scale", tools_origin_and_scale)
+    ray_ms, peak = step("ray-cast", tools_raycast)
+    step("deform", tools_deform)
+    with tempfile.TemporaryDirectory() as folder:
+        step("markers and files", tools_markers_and_files, folder)
+    if torch.device(device).type == "cuda":
+        step("export", lambda d: _check_export("[15 tools export]",
+                                               DISTORTION, d))
+    print("[15 tools] step wall seconds: %s; ray-cast %.3f ms a call, peak "
+          "%.1f MiB" % (json.dumps(seconds), ray_ms, peak / 2**20))
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on an NVIDIA GPU",
@@ -1978,7 +2382,8 @@ def main():
                            device, DISTORTION)),
                        ("camera", lambda: phase_camera(device)),
                        ("strategy", lambda: phase_strategy(device)),
-                       ("cli", lambda: phase_cli(device))):
+                       ("cli", lambda: phase_cli(device)),
+                       ("tools", lambda: phase_tools(device))):
         for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.perf_counter()

@@ -8,12 +8,12 @@ imports torch and numpy, never jax.
 Ported so far (the lens + camera solve, the Schur BA, the per-frame
 solve, the hooks and checkpoints, the lens export with warp, the solver
 strategies behind the Collection API, the from-scratch camera solve,
-and the command line with its file formats):
+the command line with its file formats, and the artist tools):
   api      — Frame, Lens, Collection, validate, execute(device=)
   cli      — the reference's sixteen verbs (python -m
              mayamatchmovesolver_torch.cli); --device defaults to cuda
   core/    — TRS transforms and their decomposition into Euler angles,
-             projection matrix, film fit, reprojection
+             projection matrix, film fit, reprojection, 2D line math
   scene/   — AttrBlock, FlatScene + evaluate, SceneGraph builder,
              interop (baked JAX arrays -> port objects)
   models/  — 3DE lens models, SceneLens bindings, attach_lens_file
@@ -29,11 +29,22 @@ and the command line with its file formats):
              warp; lens deformer
   io/      — marker files (uvtrack, 3DE, PFTrack, MatchMover) and their
              registry, EXR (every codec) and image files, the Nuke-script
-             lens file
+             lens file, the .mmcamera camera file
   native   — ctypes binding to native/libmmtpu_native.so (the PIZ
              Huffman codec)
   utils/   — the Kalman filter of the sequential per-frame solve, batch
-             reprojection, profiling (phase timers, torch.profiler trace)
+             reprojection, profiling (phase timers, torch.profiler trace),
+             ray-mesh intersection, smoothing, animation curves, config,
+             logging, events, frame ranges, image sequences, natural sort,
+             string conversions
+  tools/   — artist-tool data capabilities: screen-space conversion and
+             rig bake, center-2D, reparent, origin frame, scene scale,
+             ray-cast onto a mesh, marker deform, marker ops, copy/paste
+             markers, deviation reports, attribute bake, curves, image
+             plane, subdivide line, surface cluster; those that bake a
+             SceneGraph take device= (default "cuda")
 """
 
 __version__ = "0.1.0"
+
+from mayamatchmovesolver_torch.utils import config as _config  # noqa: F401

@@ -70,8 +70,16 @@ def gather_attr_values(attrs: AttrBlock, codes, frame_indices):
 
     codes: int tensor (...,) of packed attr codes.
     frame_indices: int tensor (F,) indexing the baked frame axis.
+    Either may be a numpy array or a list, as the reference accepts;
+    it then joins the attributes' device.
     Returns (..., F) float values; ATTR_NONE yields 0.0.
     """
+    device = attrs.static_values.device
+    if not torch.is_tensor(codes):
+        codes = torch.as_tensor(np.asarray(codes, np.int64), device=device)
+    if not torch.is_tensor(frame_indices):
+        frame_indices = torch.as_tensor(
+            np.asarray(frame_indices, np.int64), device=device)
     idx = torch.clamp(codes, min=0) // 2
     s = attrs.static_values[torch.clamp(idx, 0, attrs.num_static - 1)]
     a = attrs.anim_values[torch.clamp(idx, 0, attrs.num_anim - 1)][

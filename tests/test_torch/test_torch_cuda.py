@@ -1,8 +1,9 @@
 """The port's CUDA kernels (the ST map from the pixel index and its
 layer variant from a map), its Schur BA, its per-frame solve, its lens
 stacks, its checkpoints, its robust relative pose, its from-scratch
-camera solve, its Collection API and its command line (lensdistort,
-reproject) on the card, and the no-fallback rule.
+camera solve, its Collection API, its command line (lensdistort,
+reproject) and its tools (ray-mesh intersection, screen-space rig bake,
+reparent) on the card, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -487,3 +488,102 @@ def test_cli_reproject_on_cuda_matches_cpu(tmp_path):
     assert results["cuda"].shape == (16, 8, 2)
     np.testing.assert_allclose(results["cuda"], results["cpu"], rtol=0,
                                atol=1e-10)
+
+
+def _tools_scene(device_frames=6):
+    """A float64 port scene for the tools: an animated camera, an
+    animated group, a static group and seeded bundles with markers."""
+    from mayamatchmovesolver_torch.scene import SceneGraph
+
+    rng = np.random.RandomState(7)
+    n = device_frames
+    ramp = np.linspace(0.0, 1.0, n)
+    sg = SceneGraph(frame_range=(1, n))
+    nodes = {"grp": sg.create_transform("grp", tx=2.0 * ramp,
+                                        ry=30.0 * ramp),
+             "newp": sg.create_transform("newp", tx=-1.0, rz=20.0)}
+    nodes["cam"] = sg.create_camera(
+        "cam", tx=-1.0 + 2.0 * ramp, ty=0.3 * ramp, tz=10.0 + ramp,
+        rx=rng.uniform(-2, 2, n), ry=-4.0 + 8.0 * ramp, rz=np.zeros(n),
+        render_width=1920, render_height=1080)
+    nodes["bundles"] = [sg.create_bundle(
+        "b%d" % i, tx=rng.uniform(-3, 3), ty=rng.uniform(-2, 2),
+        tz=rng.uniform(-8, -4)) for i in range(5)]
+    for i, b in enumerate(nodes["bundles"]):
+        sg.create_marker("m%d" % i, camera=nodes["cam"], bundle=b,
+                         tx=rng.uniform(-0.3, 0.3, n),
+                         ty=rng.uniform(-0.2, 0.2, n))
+    return sg, nodes
+
+
+@pytest.mark.cuda
+def test_intersect_rays_mesh_on_cuda_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.utils import raytrace
+
+    rng = np.random.RandomState(3)
+    vertices = rng.uniform(-2, 2, (60, 3)) * [1, 1, 0.1] - [0, 0, 4]
+    triangles = rng.randint(0, 60, (80, 3))
+    origins = rng.uniform(-1, 1, (64, 3)) * [1, 1, 0] + [0, 0, 3]
+    directions = rng.normal(0, 0.2, (64, 3)) - [0, 0, 1]
+    results = {}
+    for device in ("cpu", "cuda"):
+        for both in (False, True):
+            out = raytrace.intersect_rays_mesh(
+                torch.as_tensor(origins, device=device),
+                torch.as_tensor(directions, device=device), vertices,
+                triangles, test_both_directions=both)
+            assert out[0].device.type == device
+            results[device, both] = [t.cpu().numpy() for t in out]
+    for both in (False, True):
+        want, got = results["cpu", both], results["cuda", both]
+        np.testing.assert_array_equal(got[3], want[3])
+        assert want[3].any()
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(g[want[3]], w[want[3]], rtol=0,
+                                       atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_screen_space_rig_bake_on_cuda_round_trips():
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.scene import evaluate
+    from mayamatchmovesolver_torch.tools import screenspace
+
+    sg, nodes = _tools_scene()
+    scene, attrs = sg.bake(device="cuda")
+    frames = torch.arange(sg.num_frames, device="cuda")
+    for b in nodes["bundles"]:
+        rig = screenspace.screen_space_rig_bake(scene, attrs, frames,
+                                                b.index)
+        assert rig["depth"].is_cuda and bool((rig["depth"] > 0).all())
+        world = screenspace.screen_space_rig_unbake(
+            scene, attrs, frames, rig["screen_x"], rig["screen_y"],
+            rig["depth"])
+        want = evaluate(scene, attrs, frames).tfm_world[b.index, :, :3, 3]
+        np.testing.assert_allclose(world.cpu().numpy(),
+                                   want.cpu().numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_reparent_on_cuda_writes_the_cpu_values():
+    """reparent(device="cuda") writes the builder values of the CPU run
+    at 1e-10 (float64 on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.tools import reparent
+
+    baked = {}
+    for device in ("cpu", "cuda"):
+        sg, nodes = _tools_scene()
+        reparent.reparent(sg, nodes["cam"], nodes["grp"], device=device)
+        for b in nodes["bundles"]:
+            reparent.reparent(sg, b, nodes["newp"], device=device)
+        reparent.reparent(sg, nodes["cam"], None, device=device)
+        attrs = sg._attr_builder.bake(device="cpu")
+        baked[device] = (attrs.static_values.numpy(),
+                         attrs.anim_values.numpy())
+    for got, want in zip(baked["cuda"], baked["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
