@@ -45,7 +45,16 @@ out:
     64 markers onto a 131,072-triangle plane, marker deform and its
     removal, average / duplicate / convert / reproject markers, copy and
     paste of the 64 markers, the camera file, the deviation files of a
-    solve, each held to an invariant, and the export of the lens.
+    solve, each held to an invariant, and the export of the lens;
+  * phase 16: the frame-sharded solvers (parallel/) under a one-rank NCCL
+    process group: the production BA through sharded_solve_ba beside
+    phase 8's figures, the shot with every solved parameter static
+    through solve() with lm_sharded (against the truth and the dense
+    solve), __graft_entry__.py's dryrun BA with its thresholds, solve()
+    with ba_schur_sharded (the single-device Schur BA at one rank); two
+    gloo ranks spawned on the same card (this script with --sharded-rank)
+    repeat the first two in float64 and must agree with one rank; and the
+    export of the solved lens.
 
 Needs one CUDA device; it fails (non-zero exit, no result line) without
 one, when the build or a launch fails, or when any check misses.  It
@@ -169,6 +178,32 @@ TOOLS_RAY_FRAMES = (0, 60, 119)
 # size this many times that depth.
 TOOLS_MESH_QUADS, TOOLS_MESH_HALF = 256, 2.0
 
+# Phase 16: the frame-sharded solvers (parallel/).  (a) the shot with
+# every solved parameter static (focal, distortion and the 64 bundles,
+# moved BUNDLE_NOISE off the truth; the camera known) through solve() with
+# lm_sharded, held to the truth (bundles within SHARDED_BUNDLE_TOL) and to
+# the dense solve() within SHARDED_DENSE_TOL of the largest parameter;
+# (b) __graft_entry__.py's dryrun_multichip BA at 64 frames (96 bundles,
+# focal and classic distortion in the border, float32, 10 iterations, CG
+# 25) with its thresholds; (c) the production BA of phase 8 through
+# sharded_solve_ba; (d) solve() with ba_schur_sharded on the shot with
+# its bundles free (world size 1: the single-device Schur BA, whose
+# result it must repeat within HOOKED_RTOL).  Then two gloo ranks on the
+# one card run (a) and (b) in float64 and must take the world-1 float64
+# runs' iterations and stop reasons, with cost and solved parameters
+# within RANKS_RTOL.  There (b) runs to convergence (18 iterations, stop
+# 2): after 10 its path still depends on the order of the sums, in the
+# JAX package as well (float64 on 1, 2 and 4 CPU devices: focal
+# 35.13751, 35.13798, 35.13703 mm after 10 iterations; 35 on all after
+# 18).
+BUNDLE_NOISE = 0.05
+SHARDED_BUNDLE_TOL, SHARDED_DENSE_TOL = 1e-3, 1e-4
+DRYRUN_FRAMES, DRYRUN_BUNDLES, DRYRUN_ITERATIONS, DRYRUN_CG = 64, 96, 10, 25
+DRYRUN_COST_SHARE, DRYRUN_FOCAL_TOL_MM, DRYRUN_DISTORTION_TOL = (
+    1e-3, 0.3, 5e-3)
+DRYRUN_CONVERGED_ITERATIONS = 40
+RANKS, RANKS_RTOL, RANKS_TIMEOUT_S = 2, 1e-8, 300
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet), for the bound.
 H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -247,15 +282,20 @@ def shot(frames=FRAMES, bundles=BUNDLES, seed=7):
 
 
 def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
-                         solve_bundles=False, per_frame=False):
+                         solve_bundles=False, per_frame=False,
+                         static_only=False, dtype=np.float32):
     """Scene, perturbed attributes, lens and solve attributes on `device`,
-    float32, with marker tracks made by the port's own evaluate + lens
-    distortion; with solve_bundles the bundle positions are solved too
-    (not moved off the truth).  With per_frame only the six camera
-    channels are solved: the focal length and the distortion stay at the
-    truth and every frame gets seeded noise on top of CAMERA_OFFSET.
+    float32 (or `dtype`), with marker tracks made by the port's own
+    evaluate + lens distortion; with solve_bundles the bundle positions
+    are solved too (not moved off the truth).  With per_frame only the six
+    camera channels are solved: the focal length and the distortion stay
+    at the truth and every frame gets seeded noise on top of
+    CAMERA_OFFSET.  With static_only every solved parameter is static:
+    the camera stays at the truth, and the focal length, the distortion
+    and the bundle positions (moved BUNDLE_NOISE off) are solved.
     Returns (scene, attrs, lens, solve_attrs, codes); codes["camera"]
-    maps each camera channel to its row of anim_values."""
+    maps each camera channel to its row of anim_values, codes["bundles"]
+    lists each bundle's static tx, ty, tz rows."""
     from mayamatchmovesolver_torch.core.constants import FilmFit
     from mayamatchmovesolver_torch.models import scenelens
     from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
@@ -264,7 +304,7 @@ def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
     )
 
     camera, positions = shot(frames, bundles)
-    sg = SceneGraph(frame_range=(1, frames), dtype=np.float32)
+    sg = SceneGraph(frame_range=(1, frames), dtype=dtype)
     cam = sg.create_camera(
         "cam", film_fit=FilmFit.HORIZONTAL, render_width=HD[0],
         render_height=HD[1], focal_length_mm=FOCAL, sensor_width_mm=36.0,
@@ -287,10 +327,24 @@ def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
 
     codes = dict(focal=cam.attr("focal_length_mm").code // 2,
                  distortion=cam.attr("lens_distortion").code // 2,
-                 camera={ch: cam.attr(ch).code // 2 for ch in CAMERA_OFFSET})
+                 camera={ch: cam.attr(ch).code // 2 for ch in CAMERA_OFFSET},
+                 bundles=[[b.attr(ch).code // 2 for ch in ("tx", "ty", "tz")]
+                          for b in bnds])
     static = attrs.static_values.clone()
     anim = attrs.anim_values.clone()
     noise = np.random.RandomState(11)
+    if static_only:
+        rows = torch.as_tensor(codes["bundles"], device=device)
+        static[rows] += torch.as_tensor(
+            noise.normal(0.0, BUNDLE_NOISE, (bundles, 3)), dtype=static.dtype,
+            device=device)
+        static[codes["focal"]] += FOCAL_OFFSET
+        static[codes["distortion"]] += DISTORTION_OFFSET
+        attrs = dataclasses.replace(attrs, static_values=static)
+        solve_attrs = [cam.attr("focal_length_mm"),
+                       cam.attr("lens_distortion")]
+        solve_attrs += [b.attr(ch) for b in bnds for ch in ("tx", "ty", "tz")]
+        return scene, attrs, lens, solve_attrs, codes
     for ch, delta in CAMERA_OFFSET.items():
         anim[codes["camera"][ch]] += delta
         if per_frame:
@@ -313,11 +367,12 @@ def build_problem_inputs(device, frames=FRAMES, bundles=BUNDLES,
 
 
 def solve_shot(device, frames=FRAMES, bundles=BUNDLES, schur=False,
-               ba_linear_solver=None, **hooks):
+               ba_linear_solver=None, sharded=False, **hooks):
     """The solve of the shot on `device`: dense, or with schur=True the
-    Schur BA with the bundles free; `hooks` are further SolverOptions
-    (iteration_callback, interrupt_check, callback_interval, ...).
-    Returns (attrs_out, result, codes, problem size)."""
+    Schur BA with the bundles free (sharded=True: as ba_schur_sharded);
+    `hooks` are further SolverOptions (iteration_callback,
+    interrupt_check, callback_interval, ...).  Returns (attrs_out,
+    result, codes, problem size)."""
     from mayamatchmovesolver_torch.solver import SolverOptions, registry, solve
 
     scene, attrs, lens, solve_attrs, codes = build_problem_inputs(
@@ -326,7 +381,8 @@ def solve_shot(device, frames=FRAMES, bundles=BUNDLES, schur=False,
     if schur:
         options = SolverOptions(
             image_width=float(HD[0]),
-            solver_type=registry.SOLVER_TYPE_BA_SCHUR,
+            solver_type=(registry.SOLVER_TYPE_BA_SHARDED if sharded
+                         else registry.SOLVER_TYPE_BA_SCHUR),
             ba_linear_solver=ba_linear_solver, **hooks)
     attrs_out, result = solve(scene, attrs, np.arange(frames), solve_attrs,
                               options, lens=lens)
@@ -819,7 +875,8 @@ def _profile_iteration(device, tag, body, state):
 
 def phase_production(device):
     """The Schur BA at production scale with both assemblies; returns the
-    solved distortion."""
+    solved distortion and, per assembly, the warm s/iteration and the peak
+    device memory in MiB."""
     from mayamatchmovesolver_torch.solver import ba
 
     problem = production_problem(device)
@@ -844,7 +901,7 @@ def phase_production(device):
 
     kw = dict(max_iterations=PROD_ITERATIONS, eps1=0.0, eps2=0.0, eps3=0.0,
               linear_solver="cg", cg_iterations=PROD_CG)
-    solved = None
+    figures = {}
     for assembly in ba.ASSEMBLIES:
         tag = "[8 production %s]" % assembly
 
@@ -901,8 +958,9 @@ def phase_production(device):
         body = ba._make_ba_body(problem, 0.0, 0.0, 0.0, "cg", PROD_CG,
                                 assembly)
         _profile_iteration(device, tag, body, ba.ba_init(problem))
-        solved = distortion
-    return solved
+        figures[assembly] = (warm / its, peak / 2**20)
+        figures["distortion"] = distortion
+    return figures
 
 
 def phase_per_frame(device):
@@ -1460,6 +1518,11 @@ def _profiled(device, tag, what, fn):
                   "its children's)" % (
                       tag, e.count, e.cpu_time_total / e.count / 1e3,
                       e.device_time_total / e.count / 1e3))
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    if nccl:
+        print("%s   NCCL kernels: %d launches, %.4f s device time" % (
+            tag, sum(e.count for e in nccl),
+            sum(e.self_device_time_total for e in nccl) / 1e6))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         print("%s   %-60.60s %6d x  %.4f s" % (
             tag, e.key, e.count, e.self_device_time_total / 1e6))
@@ -2353,7 +2416,415 @@ def phase_tools(device):
     return seconds
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_shot_solve(device, solver_type, frames=FRAMES, bundles=BUNDLES,
+                       dtype=np.float32):
+    """Phase 16 (a): the shot with every solved parameter static through
+    solve() with `solver_type`.  Returns (attrs_out, result, codes, the
+    costs 0.5 |r|^2 over every frame at the start and at the solution)."""
+    from mayamatchmovesolver_torch.solver import (
+        SolverOptions,
+        build_problem,
+        measure_residuals,
+        solve,
+    )
+
+    scene, attrs, lens, solve_attrs, codes = build_problem_inputs(
+        device, frames, bundles, static_only=True, dtype=dtype)
+    options = SolverOptions(image_width=float(HD[0]), solver_type=solver_type)
+    frame_range = np.arange(frames)
+    attrs_out, result = solve(scene, attrs, frame_range, solve_attrs, options,
+                              lens=lens)
+    problem = build_problem(scene, attrs, frame_range, solve_attrs, options,
+                            lens=lens)
+    costs = [float(0.5 * torch.sum(r * r)) for r, _ in (
+        measure_residuals(problem, a) for a in (attrs, attrs_out))]
+    return attrs_out, result, codes, costs
+
+
+def _check_static_recovery(tag, attrs_out, result, codes, frames, bundles):
+    """Focal, distortion and error_final as _check_recovery holds them, and
+    every solved bundle within SHARDED_BUNDLE_TOL of the truth."""
+    _check_recovery(tag, attrs_out, result, codes)
+    _, truth = shot(frames, bundles)
+    solved = attrs_out.static_values[
+        torch.as_tensor(codes["bundles"])].cpu().numpy()
+    worst = float(np.abs(solved - truth).max())
+    print("%s bundles: largest error %.3g (limit %g)" % (
+        tag, worst, SHARDED_BUNDLE_TOL))
+    if not worst <= SHARDED_BUNDLE_TOL:
+        raise AssertionError("%s bundles off the truth" % tag)
+
+
+def dryrun_problem(device, frames=DRYRUN_FRAMES, bundles=DRYRUN_BUNDLES,
+                   dtype=np.float32):
+    """__graft_entry__.py's dryrun_multichip BA problem, built by the port
+    on `device`: observations at the true border [35, 0.08], cameras moved
+    0.01 off the truth, the border started at [35.8, 0.05]."""
+    from mayamatchmovesolver_torch.solver import ba
+
+    rng = np.random.RandomState(0)
+    cam_true = np.zeros((frames, 6), dtype)
+    cam_true[:, 0] = np.linspace(-2, 2, frames)
+    cam_true[:, 1] = 1.0
+    cam_true[:, 2] = 10.0
+    cam_true[:, 4] = np.linspace(-5, 5, frames)
+    bnd_true = np.stack([rng.uniform(-3, 3, bundles),
+                         rng.uniform(-2, 2, bundles),
+                         rng.uniform(-8, -4, bundles)], axis=-1).astype(dtype)
+    problem = ba.make_ba_problem(
+        marker_uv=np.zeros((bundles, frames, 2), dtype),
+        weight=np.ones((bundles, frames), dtype),
+        mkr_bnd_index=np.arange(bundles), cam_params=cam_true,
+        bnd_params=bnd_true, focal_length_mm=35.0, solve_focal=True,
+        lens_model_type="tde_classic", lens_params=dict(distortion=0.08),
+        lens_solve_names=["distortion"], device=device)
+    border = torch.tensor([35.0, 0.08], dtype=problem.cam_params.dtype,
+                          device=device)
+    uv = -ba.ba_residuals(problem, problem.cam_params, problem.bnd_params,
+                          border) / problem.image_width
+    cam0 = cam_true + rng.normal(0, 0.01, cam_true.shape).astype(dtype)
+    return problem._replace(
+        marker_uv=uv,
+        cam_params=torch.as_tensor(cam0, device=device),
+        shared_params=torch.tensor([35.8, 0.05], dtype=border.dtype,
+                                   device=device))
+
+
+def sharded_dryrun(device, mesh, frames=DRYRUN_FRAMES, dtype=np.float32,
+                   tag="[16 sharded dryrun]",
+                   max_iterations=DRYRUN_ITERATIONS):
+    """Phase 16 (b): sharded_solve_ba on the dryrun problem, held to its
+    thresholds.  Returns the result."""
+    from mayamatchmovesolver_torch.parallel import ba_sharded
+
+    problem = ba_sharded.shard_ba_problem(
+        dryrun_problem(device, frames, dtype=dtype), mesh)
+    result = ba_sharded.sharded_solve_ba(
+        problem, mesh, max_iterations=max_iterations,
+        cg_iterations=DRYRUN_CG)
+    focal, distortion = result.shared_params.tolist()
+    cost0, cost = float(result.cost_initial), float(result.cost)
+    print("%s %d frames x %d bundles on %d rank(s): cost %.6g -> %.6g in %d "
+          "iterations (stop %d), focal %.4f mm (true 35.0), distortion %.5f "
+          "(true 0.08)" % (tag, frames, DRYRUN_BUNDLES, mesh.size, cost0,
+                           cost, int(result.iterations),
+                           int(result.stop_reason), focal, distortion))
+    if not (cost < DRYRUN_COST_SHARE * cost0
+            and abs(focal - 35.0) < DRYRUN_FOCAL_TOL_MM
+            and abs(distortion - 0.08) < DRYRUN_DISTORTION_TOL):
+        raise AssertionError("%s missed its thresholds" % tag)
+    return result
+
+
+def sharded_production(device, mesh, figures, frames=PROD_FRAMES,
+                       bundles=PROD_BUNDLES):
+    """Phase 16 (c): the production BA of phase 8 through sharded_solve_ba,
+    held to phase 8's thresholds; its s/iteration and peak memory beside
+    phase 8's single-device ones; one profiled solve of one iteration."""
+    from mayamatchmovesolver_torch.parallel import ba_sharded
+
+    tag = "[16 sharded production]"
+    problem = ba_sharded.shard_ba_problem(
+        production_problem(device, frames, bundles), mesh)
+    kw = dict(max_iterations=PROD_ITERATIONS, cg_iterations=PROD_CG,
+              eps1=0.0, eps2=0.0, eps3=0.0)
+
+    def run(**over):
+        out = ba_sharded.sharded_solve_ba(problem, mesh, **dict(kw, **over))
+        _sync(device)
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    first = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    result = run()
+    warm = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(device) / 2**20
+            if torch.device(device).type == "cuda" else float("nan"))
+    its = int(result.iterations)
+    focal, distortion = result.shared_params.tolist()
+    cost0, cost = float(result.cost_initial), float(result.cost)
+    single = figures.get("ad", (float("nan"), float("nan")))
+    print("%s %d frames x %d bundles on %d rank(s), %d iterations: first "
+          "call %.3f s, warm %.3f s = %.4f s/iteration (phase 8, one device, "
+          "AD: %.4f); peak device memory %.1f MiB (phase 8: %.1f)" % (
+              tag, frames, bundles, mesh.size, its, first, warm, warm / its,
+              single[0], peak, single[1]))
+    print("%s focal %.4f mm (error %.4f), distortion %.6f (error %.6f), cost "
+          "%.6g -> %.6g (reduction %.3g)" % (
+              tag, focal, focal - PROD_FOCAL, distortion,
+              distortion - PROD_DISTORTION, cost0, cost,
+              cost0 / max(cost, 1e-30)))
+    if (its != PROD_ITERATIONS
+            or abs(focal - PROD_FOCAL) > PROD_FOCAL_TOL_MM
+            or abs(distortion - PROD_DISTORTION) > PROD_DISTORTION_TOL
+            or not cost0 / max(cost, 1e-30) >= PROD_MIN_COST_REDUCTION):
+        raise AssertionError("%s missed its thresholds" % tag)
+    if torch.device(device).type == "cuda":
+        _profiled(device, tag, "a sharded solve of one iteration (its "
+                  "initial cost and final gather included)",
+                  lambda: run(max_iterations=1))
+
+
+def sharded_float64(device, mesh, frames=FRAMES, bundles=BUNDLES,
+                    dryrun_frames=DRYRUN_FRAMES):
+    """Phase 16's float64 runs of (a) and (b) on `mesh`, as plain numbers:
+    what the world-2 ranks report and the world-1 run is held against."""
+    from mayamatchmovesolver_torch.solver import registry
+
+    attrs_out, result, codes, (cost0, cost) = sharded_shot_solve(
+        device, registry.SOLVER_TYPE_LM_SHARDED, frames, bundles,
+        dtype=np.float64)
+    if result.solver_type_name != "lm_sharded":
+        raise AssertionError("(a) not solved by the sharded LM: %s"
+                             % result.solver_type_name)
+    rows = [codes["focal"], codes["distortion"]] + [
+        r for b in codes["bundles"] for r in b]
+    ba_result = sharded_dryrun(
+        device, mesh, dryrun_frames, np.float64,
+        tag="[16 sharded dryrun float64]",
+        max_iterations=DRYRUN_CONVERGED_ITERATIONS)
+    return {
+        "lm": dict(iterations=result.iterations,
+                   stop_reason=result.stop_reason, cost=cost,
+                   cost_initial=cost0,
+                   parameters=attrs_out.static_values[rows].tolist()),
+        "ba": dict(iterations=int(ba_result.iterations),
+                   stop_reason=int(ba_result.stop_reason),
+                   cost=float(ba_result.cost),
+                   cost_initial=float(ba_result.cost_initial),
+                   parameters=ba_result.shared_params.tolist()),
+    }
+
+
+def sharded_rank(rank, world, port, out_path, device, frames, bundles,
+                 dryrun_frames):
+    """One of phase 16's gloo ranks sharing one card (python3 chip_smoke.py
+    --sharded-rank ...): joins the group, runs sharded_float64 and writes
+    its numbers to out_path."""
+    import torch.distributed as dist
+
+    from mayamatchmovesolver_torch.parallel import multihost
+
+    device = torch.device(device)
+    if not multihost.initialize("localhost:%s" % port, int(world), int(rank),
+                                local_rank=0, device=device.type,
+                                backend="gloo"):
+        raise AssertionError("rank %s joined no process group" % rank)
+    try:
+        mesh = multihost.frame_mesh(device=device)
+        got = sharded_float64(mesh.device, mesh, int(frames), int(bundles),
+                              int(dryrun_frames))
+        multihost.sync_hosts("done")
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(got, f)
+    return 0
+
+
+def _start_ranks(device, folder, frames, bundles, dryrun_frames):
+    """RANKS processes of this script, each a gloo rank on `device`."""
+    port = _free_port()
+    device = torch.device(device)
+    device = "%s:%d" % (device.type, device.index or 0) if (
+        device.type == "cuda") else device.type
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--sharded-rank", str(rank), str(RANKS),
+         str(port), "%s/rank%d.json" % (folder, rank), device, str(frames),
+         str(bundles), str(dryrun_frames)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(RANKS)]
+
+
+def _wait_ranks(procs):
+    """Each rank's (exit code, output); every rank still running after
+    RANKS_TIMEOUT_S is killed, and the phase fails."""
+    deadline = time.perf_counter() + RANKS_TIMEOUT_S
+    outs = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            outs.append((proc.returncode, out))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def _check_ranks(outs, folder, want):
+    """Every rank exited 0 and holds the world-1 float64 numbers: the same
+    iterations and stop reasons, the cost within RANKS_RTOL of the
+    initial cost (a converged cost is round-off) and the parameters
+    within RANKS_RTOL of the largest."""
+    for rank, (code, out) in enumerate(outs):
+        if code != 0:
+            raise AssertionError("rank %d of %d exited %s:\n%s" % (
+                rank, RANKS, code, out[-4000:]))
+        with open("%s/rank%d.json" % (folder, rank)) as f:
+            got = json.load(f)
+        for run in ("lm", "ba"):
+            g, w = got[run], want[run]
+            params = np.asarray(w["parameters"])
+            cost_err = abs(g["cost"] - w["cost"]) / abs(w["cost_initial"])
+            param_err = float(np.abs(np.asarray(g["parameters"]) - params)
+                              .max() / np.abs(params).max())
+            print("[16 sharded %d ranks] rank %d %s: iterations %d (world 1: "
+                  "%d), stop %d (%d), cost relative difference %.3g, "
+                  "parameters %.3g" % (RANKS, rank, run, g["iterations"],
+                                       w["iterations"], g["stop_reason"],
+                                       w["stop_reason"], cost_err, param_err))
+            if (g["iterations"] != w["iterations"]
+                    or g["stop_reason"] != w["stop_reason"]
+                    or not cost_err <= RANKS_RTOL
+                    or not param_err <= RANKS_RTOL):
+                raise AssertionError("rank %d's %s differs from world 1"
+                                     % (rank, run))
+
+
+def _same_result(tag, got, want):
+    """Two solve() results of the same problem on the card: equal lines
+    but for timers and the solver's name, numbers within HOOKED_RTOL."""
+    skip = ("timer_", "solver_type=")
+    g_lines = [ln for ln in got.as_key_value_strings()
+               if not ln.startswith(skip)]
+    w_lines = [ln for ln in want.as_key_value_strings()
+               if not ln.startswith(skip)]
+    if len(g_lines) != len(w_lines):
+        raise AssertionError("%s: result lines differ" % tag)
+    for g, w in zip(g_lines, w_lines):
+        key, g_value = g.split("=", 1)
+        w_value = w.split("=", 1)[1]
+        if w.split("=", 1)[0] != key:
+            raise AssertionError("%s: %s against %s" % (tag, g, w))
+        try:
+            g_num = np.array(g_value.replace(",", " ").split(), float)
+            w_num = np.array(w_value.replace(",", " ").split(), float)
+        except ValueError:
+            if g_value != w_value:
+                raise AssertionError("%s: %s against %s" % (tag, g, w))
+            continue
+        if not np.allclose(g_num, w_num, rtol=HOOKED_RTOL, atol=1e-9):
+            raise AssertionError("%s: %s against %s" % (tag, g, w))
+
+
+def phase_sharded(device, figures, frames=FRAMES, bundles=BUNDLES,
+                  dryrun_frames=DRYRUN_FRAMES,
+                  production=(PROD_FRAMES, PROD_BUNDLES)):
+    """The frame-sharded solvers: world size 1 under a real process group
+    (NCCL on the card, gloo on the CPU), (c) alone on the device, then
+    (a), (b), (d) and the world-1 float64 runs while RANKS gloo ranks run
+    (a) and (b) in float64 on the same device; then the export of (a)'s
+    lens.  No group, no spawn, a rank's failure: the phase fails.  Returns
+    the step seconds."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mayamatchmovesolver_torch.parallel import multihost
+    from mayamatchmovesolver_torch.solver import registry
+
+    seconds = {}
+
+    def step(name, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    if not multihost.initialize("localhost:%d" % _free_port(), 1, 0,
+                                local_rank=0,
+                                device=torch.device(device).type):
+        raise AssertionError("no process group")
+    try:
+        mesh = multihost.frame_mesh(device=device)
+        print("[16 sharded] process group: backend %s, world size %d, "
+              "device %s" % (dist.get_backend(), mesh.size, mesh.device))
+        step("(c) production", lambda: sharded_production(
+            device, mesh, figures, *production))
+        with tempfile.TemporaryDirectory() as folder:
+            t_spawn = time.perf_counter()
+            procs = _start_ranks(device, folder, frames, bundles,
+                                 dryrun_frames)
+            try:
+                a_out, a_res, codes, _ = step(
+                    "(a) lm_sharded", lambda: sharded_shot_solve(
+                        device, registry.SOLVER_TYPE_LM_SHARDED, frames,
+                        bundles))
+                d_out, d_res, _, _ = step(
+                    "(a) dense", lambda: sharded_shot_solve(
+                        device, registry.SOLVER_TYPE_LM_DENSE, frames,
+                        bundles))
+                if a_res.solver_type_name != "lm_sharded":
+                    raise AssertionError("(a) not solved by the sharded LM: "
+                                         "%s" % a_res.solver_type_name)
+                print("[16 sharded (a)] %d parameters, %d residuals" % (
+                    len(a_res.solved_parameters), 2 * bundles * frames))
+                _check_static_recovery("[16 sharded (a)]", a_out, a_res,
+                                       codes, frames, bundles)
+                _check_static_recovery("[16 sharded (a) dense]", d_out, d_res,
+                                       codes, frames, bundles)
+                diff = float(np.abs(a_res.solved_parameters
+                                    - d_res.solved_parameters).max()
+                             / np.abs(d_res.solved_parameters).max())
+                print("[16 sharded (a)] against the dense solve: %d / %d "
+                      "iterations, largest parameter difference %.3g of the "
+                      "largest (limit %g)" % (a_res.iterations,
+                                              d_res.iterations, diff,
+                                              SHARDED_DENSE_TOL))
+                if not diff <= SHARDED_DENSE_TOL:
+                    raise AssertionError("(a) parts from the dense solve")
+                step("(b) dryrun", lambda: sharded_dryrun(device, mesh,
+                                                          dryrun_frames))
+                b_out, b_res, b_codes, _ = step(
+                    "(d) ba_schur_sharded", lambda: solve_shot(
+                        device, frames, bundles, schur=True, sharded=True))
+                _, s_res, _, _ = step("(d) ba_schur", lambda: solve_shot(
+                    device, frames, bundles, schur=True))
+                if (b_res.solver_type_name != "ba_schur_sharded"
+                        or "fallback" in b_res.reason_string):
+                    raise AssertionError("(d) not solved as ba_schur_sharded: "
+                                         "%s, %s" % (b_res.solver_type_name,
+                                                     b_res.reason_string))
+                _check_recovery("[16 sharded (d)]", b_out, b_res, b_codes)
+                _same_result("[16 sharded (d)]", b_res, s_res)
+                want = step("float64 world 1", lambda: sharded_float64(
+                    device, mesh, frames, bundles, dryrun_frames))
+            finally:
+                outs = _wait_ranks(procs)
+            seconds["%d ranks, spawn to exit" % RANKS] = round(
+                time.perf_counter() - t_spawn, 3)
+            _check_ranks(outs, folder, want)
+    finally:
+        dist.destroy_process_group()
+    distortion = float(a_out.static_values[codes["distortion"]])
+    if torch.device(device).type == "cuda":
+        step("export", lambda: _check_export("[16 sharded export]",
+                                             distortion, device))
+    print("[16 sharded] step wall seconds (a), (b), (d) and float64 world 1 "
+          "ran beside the %d ranks: %s" % (RANKS, json.dumps(seconds)))
+    return seconds
+
+
 def main():
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        return sharded_rank(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -2371,11 +2842,15 @@ def main():
     wrappers = {"stmap": stmap_mod.stmap_cuda,
                 "stmap_layer": stmap_mod.stmap_layer_cuda}
     launches = {kernel: {} for kernel in wrappers}
+    figures = {}
+
+    def production():
+        figures.update(phase_production(device))
+        _check_export("[8 production export]", figures["distortion"], device)
+
     for name, path in (("dense", lambda: phase_main_path(device)),
                        ("ba", lambda: phase_ba_path(device)),
-                       ("production", lambda: _check_export(
-                           "[8 production export]", phase_production(device),
-                           device)),
+                       ("production", production),
                        ("per-frame", lambda: phase_per_frame(device)),
                        ("hooks", lambda: phase_hooks_and_checkpoints(device)),
                        ("stack", lambda: phase_stack_and_warp(
@@ -2383,7 +2858,8 @@ def main():
                        ("camera", lambda: phase_camera(device)),
                        ("strategy", lambda: phase_strategy(device)),
                        ("cli", lambda: phase_cli(device)),
-                       ("tools", lambda: phase_tools(device))):
+                       ("tools", lambda: phase_tools(device)),
+                       ("sharded", lambda: phase_sharded(device, figures))):
         for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.perf_counter()

@@ -5,10 +5,11 @@ the module at the same path there, keeps its public names, and is held
 against it by the agreement tests in tests/test_torch/.  This package
 imports torch and numpy, never jax.
 
-Ported so far (the lens + camera solve, the Schur BA, the per-frame
-solve, the hooks and checkpoints, the lens export with warp, the solver
-strategies behind the Collection API, the from-scratch camera solve,
-the command line with its file formats, and the artist tools):
+Ported: everything the JAX package does — the lens + camera solve, the
+Schur BA, the per-frame solve, the hooks and checkpoints, the lens export
+with warp, the solver strategies behind the Collection API, the
+from-scratch camera solve, the command line with its file formats, the
+artist tools and the multi-device layer:
   api      — Frame, Lens, Collection, validate, execute(device=)
   cli      — the reference's sixteen verbs (python -m
              mayamatchmovesolver_torch.cli); --device defaults to cuda
@@ -24,6 +25,11 @@ the command line with its file formats, and the artist tools):
              rootframe, affects, triangulate, linalg (on torch.linalg.eigh)
   sfm/     — two-view geometry with hypothesis-parallel RANSAC, resection,
              vanishing-point calibration, the incremental camera solve
+  parallel/ — frame-sharded LM and Schur-CG BA over the ranks of a
+             torch.distributed process group (one rank a device;
+             all_reduce for the reference's psum), the multi-process
+             bootstrap (torchrun's variables; NCCL on cards, gloo on the
+             CPU), host and frame meshes
   ops/     — ST-map export of a lens or a lens stack; csrc/stmap.cu is
              its Hopper kernel, built and loaded by _kernels.py; image
              warp; lens deformer

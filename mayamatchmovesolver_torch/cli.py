@@ -178,7 +178,6 @@ def _cmd_solve(args):
         solve,
         solve_per_frame,
     )
-    from mayamatchmovesolver_torch.solver.solve import _refuse_unported
 
     device = _device(args)
     solver_type = None
@@ -190,13 +189,6 @@ def _cmd_solve(args):
         image_width=float(args.image_width or 1920),
         solver_type=solver_type,
     )
-    try:
-        # The sharded backends are not ported (ROADMAP Queue 1 item 14);
-        # refuse them for the per-frame solve too, which would ignore
-        # the choice.
-        _refuse_unported(options)
-    except NotImplementedError as exc:
-        raise SystemExit(str(exc))
 
     _, mkr_data = _load_markers(
         args.markers, args.image_width, args.image_height
@@ -225,7 +217,8 @@ def _cmd_solve(args):
     solve_attrs = [cam.attr(c) for c in ("tx", "ty", "tz",
                                          "rx", "ry", "rz")]
     solve_bundles = bool(getattr(args, "solve_bundles", False)) or (
-        solver_type == registry.SOLVER_TYPE_BA_SCHUR
+        solver_type in (registry.SOLVER_TYPE_BA_SCHUR,
+                        registry.SOLVER_TYPE_BA_SHARDED)
     )
     if solve_bundles:
         # Joint camera+bundle solve over all frames at once — routed
@@ -888,8 +881,7 @@ def main(argv=None):
                             "ba_schur_sharded"],
                    help="solver backend (see `solver-types`); the "
                         "ba_* backends solve camera AND bundles "
-                        "jointly via the structured Schur path; the "
-                        "sharded ones are not ported")
+                        "jointly via the structured Schur path")
     p.add_argument("--solve-bundles", action="store_true",
                    help="solve bundle positions jointly with the "
                         "camera (all frames at once)")

@@ -4,12 +4,11 @@ write results back.
 Port of mayamatchmovesolver_tpu/solver/solve.py (ref:
 src/mmSolver/adjust/adjust_base.cpp:713-1580): problem sizing and
 validation, the dense LM and the structured Schur BA (solver/ba.py,
-reached through solver/ba_bridge.py), the block-resumable solve loops that
-give the host control between iteration blocks, the per-frame solve
-(all frames at once under one batched LM, or in order with a Kalman warm
-start), accept-only-better revert, and result assembly.  Backends and
-options that the port does not have yet raise NotImplementedError naming
-the ROADMAP item that brings them.
+reached through solver/ba_bridge.py), their frame-sharded variants
+(parallel/), the block-resumable solve loops that give the host control
+between iteration blocks, the per-frame solve (all frames at once under
+one batched LM, or in order with a Kalman warm start),
+accept-only-better revert, and result assembly.
 """
 
 import contextlib
@@ -66,7 +65,6 @@ class SolverOptions:
     jacobian_mode: str = "fwd"
     # Solver backend (solver/registry.py indices); None = the registry
     # default, which honors the MMSOLVER_TPU_DEFAULT_SOLVER env var.
-    # The dense LM and the Schur BA are ported, the sharded ones not.
     solver_type: Optional[int] = None
     # Linear solver for the Schur BA: None = auto (exact Cholesky for
     # short shots, block-preconditioned CG once the reduced camera system
@@ -126,16 +124,24 @@ def _solver_type(options: SolverOptions):
     return options.solver_type
 
 
-def _refuse_unported(options: SolverOptions):
-    """Raise for every option this port does not carry out yet."""
+def _resolve_solver_type(options: SolverOptions, problem):
+    """Pick the solver backend: explicit option, else the registry
+    default (which honors the MMSOLVER_TPU_DEFAULT_SOLVER env var,
+    like the reference's MMSOLVER_DEFAULT_SOLVER,
+    adjust_base.cpp:102-127).  The frame-sharded LM needs every parameter
+    static and the solve frame count divisible by the world size; a
+    problem that does not meet that falls back to the dense LM."""
+    from mayamatchmovesolver_torch.parallel import make_frame_mesh
+
     st = _solver_type(options)
-    if st not in (registry_mod.SOLVER_TYPE_LM_DENSE,
-                  registry_mod.SOLVER_TYPE_BA_SCHUR):
-        raise NotImplementedError(
-            "solver_type %r (%s) is not ported to torch yet: the sharded "
-            "backends come with ROADMAP Queue 1 item 14"
-            % (st, registry_mod.solver_name(st))
-        )
+    if st == registry_mod.SOLVER_TYPE_LM_SHARDED:
+        all_static = bool(torch.all(problem.param_frames == -1))
+        world = make_frame_mesh(problem.attrs.static_values.device).size
+        if not all_static or int(problem.num_frames) % world != 0:
+            return registry_mod.SOLVER_TYPE_LM_DENSE
+    # BA backends are resolved by the bridge in solve() (they need the
+    # original scene/attr handles, not the flattened problem).
+    return st
 
 
 def build_problem(
@@ -383,9 +389,84 @@ def _solve_ba_chunked(bridge, options: SolverOptions, linear_solver):
     return ba_mod.ba_finalize(state, init.cost), interrupted
 
 
-def _solve_problem_ba(problem, bridge, options: SolverOptions):
-    """The Schur BA behind the dense path's result contract: returns
-    (lm_result, attrs_out, aux0, aux1, interrupted)."""
+def _solve_problem_sharded(problem, config):
+    """Frame-sharded LM backend (parallel/sharded.py) behind the same
+    result contract as the dense path.  Every rank holds the whole
+    problem, so the deviations before and after cover every frame.
+    Returns (lm_result, attrs_out, aux0, aux1, interrupted)."""
+    from mayamatchmovesolver_torch.parallel import (
+        make_frame_mesh,
+        shard_problem_arrays,
+        sharded_levenberg_marquardt,
+    )
+
+    mesh = make_frame_mesh(problem.attrs.static_values.device)
+    sharded = shard_problem_arrays(problem, mesh)
+    x0 = problem_mod.initial_parameters(sharded)
+    r0, aux0 = problem_mod.measure_residuals(sharded, sharded.attrs)
+    state = sharded_levenberg_marquardt(
+        sharded, x0, mesh, max_iterations=config.max_iterations,
+        tau=config.tau, eps1=config.eps1, eps2=config.eps2, eps3=config.eps3,
+    )
+    attrs_out = problem_mod.insert_parameters(sharded, state.params)
+    r1, aux1 = problem_mod.measure_residuals(sharded, attrs_out)
+    lm_result = lm_mod.LMResult(
+        x=state.params,
+        residuals=r1,
+        cost=state.cost,
+        cost_initial=0.5 * torch.sum(r0 * r0),
+        iterations=state.it,
+        # Counted in ShardedLMState: one sharded normal-system evaluation
+        # per iteration plus the initial one.
+        func_evals=state.nfev,
+        jacobian_evals=state.njev,
+        stop_reason=torch.where(state.stop == 0, 4, state.stop),
+        gradient_norm=torch.max(torch.abs(state.jtr)),
+    )
+    return lm_result, attrs_out, aux0, aux1, False
+
+
+def _solve_ba_sharded(bridge, options: SolverOptions):
+    """The frame-sharded Schur-CG BA (parallel/ba_sharded.py) as a
+    BAResult, or None where it does not apply: one rank, frames not
+    divisible by the world size, or a multi-camera rig — the single-device
+    Schur BA is the same algorithm.  As in the reference, the result's
+    counters and gradient norm are zero."""
+    from mayamatchmovesolver_torch.parallel import ba_sharded, make_frame_mesh
+
+    problem = bridge.problem
+    mesh = make_frame_mesh(problem.cam_params.device)
+    num_frames = problem.cam_params.shape[0]
+    if (mesh.size == 1 or num_frames % mesh.size != 0
+            or problem.num_cameras > 1):
+        return None
+    s_res = ba_sharded.sharded_solve_ba(
+        ba_sharded.shard_ba_problem(problem, mesh), mesh,
+        max_iterations=int(options.iterations), tau=float(options.tau),
+        eps1=float(options.eps1), eps2=float(options.eps2),
+        eps3=float(options.eps3), assembly=options.ba_assembly,
+    )
+    zero = torch.zeros((), dtype=torch.int32, device=s_res.cost.device)
+    return ba_mod.BAResult(
+        cam_params=s_res.cam_params,
+        bnd_params=s_res.bnd_params,
+        shared_params=s_res.shared_params,
+        cost=s_res.cost,
+        cost_initial=s_res.cost_initial,
+        iterations=s_res.iterations,
+        stop_reason=s_res.stop_reason,
+        gradient_norm=torch.zeros_like(s_res.cost),
+        func_evals=zero,
+        jacobian_evals=zero,
+    )
+
+
+def _solve_problem_ba(problem, bridge, options: SolverOptions, solver_type,
+                      has_hooks=False):
+    """The Schur BA (or its sharded variant) behind the dense path's
+    result contract: returns (lm_result, attrs_out, aux0, aux1,
+    interrupted).  Host hooks keep the sharded type on the
+    block-resumable single-device solve."""
     linear_solver = options.ba_linear_solver
     multi_cam = bridge.problem.num_cameras > 1
     if linear_solver is None:
@@ -396,7 +477,12 @@ def _solve_problem_ba(problem, bridge, options: SolverOptions):
         )
     elif multi_cam:
         linear_solver = "cg"  # the dense step is single-camera only
-    ba_result, interrupted = _solve_ba_chunked(bridge, options, linear_solver)
+    ba_result, interrupted = None, False
+    if solver_type == registry_mod.SOLVER_TYPE_BA_SHARDED and not has_hooks:
+        ba_result = _solve_ba_sharded(bridge, options)
+    if ba_result is None:
+        ba_result, interrupted = _solve_ba_chunked(bridge, options,
+                                                   linear_solver)
     attrs_out = bridge.apply_result(problem.attrs, ba_result)
     _, aux0 = problem_mod.measure_residuals(problem, problem.attrs)
     r1, aux1 = problem_mod.measure_residuals(problem, attrs_out)
@@ -439,14 +525,17 @@ def solve(
     Runs on the device the attributes lie on.  Equivalent of one
     mmSolver command invocation (ref: MMSolverCmd::doIt -> solve_v1,
     MMSolverCmd.cpp:109, adjust_base.cpp:1297).  With solver_type
-    SOLVER_TYPE_BA_SCHUR a request with the bundle-adjustment shape runs
-    the Schur BA; any other falls back to the dense LM, and the result's
-    reason string says why.  Either backend runs block-resumable: with
+    SOLVER_TYPE_BA_SCHUR or SOLVER_TYPE_BA_SHARDED a request with the
+    bundle-adjustment shape runs the Schur BA; any other falls back to the
+    dense LM, and the result's reason string says why.  The sharded types
+    split the frames over the ranks of an initialised process group
+    (parallel/); on one rank they run the single-device backends.  The
+    dense LM and the single-device BA run block-resumable: with
     iteration_callback, interrupt_check or max_seconds set the host gets
-    control every callback_interval iterations, else once at the end.
+    control every callback_interval iterations, else once at the end;
+    hooks send a sharded type to those single-device loops.
     """
     options = options or SolverOptions()
-    _refuse_unported(options)
     problem = build_problem(
         scene, attrs, frame_indices, solve_attrs, options,
         marker_frame_mask=marker_frame_mask, stiffness=stiffness,
@@ -464,10 +553,16 @@ def solve(
         )
         return attrs, result
 
-    solver_type = _solver_type(options)
+    solver_type = _resolve_solver_type(options, problem)
+    has_hooks = (
+        options.iteration_callback is not None
+        or options.interrupt_check is not None
+        or options.max_seconds is not None
+    )
     fallback_note = ""
     bridge = None
-    if solver_type == registry_mod.SOLVER_TYPE_BA_SCHUR:
+    if solver_type in (registry_mod.SOLVER_TYPE_BA_SCHUR,
+                       registry_mod.SOLVER_TYPE_BA_SHARDED):
         # SolveProblem -> BAProblem bridge (ref: one command surface
         # dispatching every registered backend, adjust_base.cpp:80-127).
         bridge, reason = ba_bridge.build_ba_bridge(
@@ -487,7 +582,13 @@ def solve(
     with profile_ctx:
         if bridge is not None:
             (lm_result, attrs_out, aux0, aux1,
-             interrupted) = _solve_problem_ba(problem, bridge, options)
+             interrupted) = _solve_problem_ba(problem, bridge, options,
+                                              solver_type, has_hooks)
+        elif (solver_type == registry_mod.SOLVER_TYPE_LM_SHARDED
+              and not has_hooks):
+            (lm_result, attrs_out, aux0, aux1,
+             interrupted) = _solve_problem_sharded(problem,
+                                                   _lm_config(options))
         else:
             (lm_result, attrs_out, aux0, aux1,
              interrupted) = _solve_problem_chunked(
@@ -516,7 +617,11 @@ def solve(
     result.reason_string = results_mod.STOP_REASON_MESSAGES.get(
         result.stop_reason, ""
     ) + fallback_note
-    result.solver_type_name = registry_mod.solver_name(solver_type)
+    # Hooks run the sharded LM as the dense one, and the name says so.
+    result.solver_type_name = registry_mod.solver_name(
+        registry_mod.SOLVER_TYPE_LM_DENSE
+        if (has_hooks and bridge is None) else solver_type
+    )
     result.user_interrupted = interrupted
     if interrupted:
         # (ref: interrupted solves keep the best state found so far,

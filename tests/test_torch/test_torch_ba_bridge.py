@@ -292,8 +292,15 @@ def test_solve_ba_schur_matches_jax(assembly):
     ba = t_registry.SOLVER_TYPE_BA_SCHUR
     j_attrs, j_res, _ = _solve("jax", solver_type=ba)
     t_attrs, t_res, h = _solve("torch", solver_type=ba, ba_assembly=assembly)
-    assert j_res.success and t_res.success
     assert t_res.solver_type_name == j_res.solver_type_name == "ba_schur"
+    _assert_ba_solves_match(t_attrs, t_res, j_attrs, j_res, h)
+
+
+def _assert_ba_solves_match(t_attrs, t_res, j_attrs, j_res, h):
+    """A port BA solve() against a JAX one of the shot: equal result
+    strings (numbers within TOL or the six digits %g prints, the timers
+    aside), parameters and attributes within TOL, the focal recovered."""
+    assert j_res.success and t_res.success
     assert t_res.reason_string == j_res.reason_string
     assert "fallback" not in t_res.reason_string
     for name in ("iterations", "stop_reason", "function_evals",
@@ -310,8 +317,6 @@ def test_solve_ba_schur_matches_jax(assembly):
                                    atol=TOL, err_msg=field)
     np.testing.assert_allclose(t_res.per_frame_error.errors,
                                j_res.per_frame_error.errors, atol=TOL)
-    # The result strings: the same lines, numbers within TOL or the six
-    # digits %g prints, the timers aside.
     t_lines = t_res.as_key_value_strings()
     j_lines = j_res.as_key_value_strings()
     assert len(t_lines) == len(j_lines)
@@ -384,12 +389,14 @@ def test_solve_ba_with_a_host_hook_stays_on_the_ba(option, value):
 
 @pytest.mark.parametrize("option,value,match", [
     ("solver_type", t_registry.SOLVER_TYPE_BA_SHARDED, "item 14"),
-])
+], ids=["solver_type-3-item 14"])
 def test_solve_ba_refuses_unported_options(option, value, match):
-    scene, attrs, lens, solve_attrs, _, _ = _shot("torch")
-    options = t_solve.SolverOptions(
-        solver_type=t_registry.SOLVER_TYPE_BA_SCHUR)
-    options = dataclasses.replace(options, **{option: value})
-    with pytest.raises(NotImplementedError, match=match):
-        t_solve.solve(scene, attrs, np.arange(FRAMES), solve_attrs, options,
-                      lens=lens)
+    """ba_schur_sharded, once refused (ROADMAP item 14), gives the JAX
+    package's result: its 6 frames divide neither the JAX tests' 8
+    devices nor need a split at the port's world size 1, so both take the
+    single-device Schur BA under the sharded type's name."""
+    j_attrs, j_res, _ = _solve("jax", **{option: value})
+    t_attrs, t_res, h = _solve("torch", **{option: value})
+    assert t_res.solver_type_name == j_res.solver_type_name == (
+        "ba_schur_sharded")
+    _assert_ba_solves_match(t_attrs, t_res, j_attrs, j_res, h)

@@ -288,6 +288,12 @@ def test_deterministic_verb_matches_the_reference(shot, tmp_path, capsys,
         j_cli.main(["lensdistort", "--distortion", "0.1", "--width", "48",
                     "--height", "36", "--output", os.path.join(d, "st.exr")])
         capsys.readouterr()
+    _assert_verb_matches(d, tmp_path, capsys, argv, takes_device, files)
+
+
+def _assert_verb_matches(d, tmp_path, capsys, argv, takes_device, files):
+    """The verb through both CLIs: the same exit code and output lines,
+    numbers within the tolerances, and the same files."""
     runs = {}
     for pkg, cli in CLIS.items():
         out = str(tmp_path / pkg) + "_"
@@ -478,15 +484,17 @@ def test_error_path_matches_the_reference(shot, capsys, case):
 @pytest.mark.parametrize("solver_type", ["lm_sharded", "ba_schur_sharded"])
 def test_sharded_solver_types_stop_with_the_refusal(shot, tmp_path, capsys,
                                                     solver_type):
+    """The sharded solver types, once refused (ROADMAP item 14), run as in
+    the JAX CLI: lm_sharded without --solve-bundles is the per-frame
+    solve, which takes no solver type; ba_schur_sharded solves camera and
+    bundles jointly, on the single-device Schur BA in both packages (the
+    shot's 6 frames do not divide the JAX tests' 8 devices, and the port
+    runs at world size 1)."""
     d, _ = shot
-    out = str(tmp_path / "s.json")
-    rc, lines = _run(t_cli, ["solve", "--markers", d + "/m6.uv",
-                             "--solver-type", solver_type, "--output", out,
-                             "--device", "cpu"], capsys)
-    assert rc.startswith("SystemExit: solver_type")
-    assert "not ported to torch yet" in rc and "item 14" in rc
-    assert solver_type in rc
-    assert not lines and not os.path.exists(out)
+    argv = ["solve", "--markers", "{d}/m6.uv", "--output", "{out}s.json",
+            "--iterations", "40", "--camera", "{d}/init.json",
+            "--solver-type", solver_type]
+    _assert_verb_matches(d, tmp_path, capsys, argv, True, ["s.json"])
 
 
 @pytest.mark.parametrize("verb", ["lensdistort", "solve", "reproject",

@@ -2,8 +2,9 @@
 layer variant from a map), its Schur BA, its per-frame solve, its lens
 stacks, its checkpoints, its robust relative pose, its from-scratch
 camera solve, its Collection API, its command line (lensdistort,
-reproject) and its tools (ray-mesh intersection, screen-space rig bake,
-reparent) on the card, and the no-fallback rule.
+reproject), its tools (ray-mesh intersection, screen-space rig bake,
+reparent) and its frame-sharded solvers (with no process group and under
+a one-rank NCCL group) on the card, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -587,3 +588,102 @@ def test_reparent_on_cuda_writes_the_cpu_values():
                          attrs.anim_values.numpy())
     for got, want in zip(baked["cuda"], baked["cpu"]):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+
+
+@pytest.fixture
+def frame_mesh(request):
+    """The frame mesh of the sharded solvers on the card: world size 1
+    with no process group, or under a one-rank NCCL group (made here and
+    destroyed after the test)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card run needs an NVIDIA GPU")
+    import socket
+
+    import torch.distributed as dist
+
+    from mayamatchmovesolver_torch.parallel import make_frame_mesh, multihost
+
+    if request.param == "no group":
+        yield make_frame_mesh("cuda")
+        return
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert multihost.initialize("localhost:%d" % port, 1, 0, local_rank=0,
+                                device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = multihost.frame_mesh()
+        assert mesh.size == 1 and mesh.group is not None
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_mesh", ["no group", "nccl group"],
+                         indirect=True)
+def test_sharded_ba_on_cuda_matches_cpu(frame_mesh):
+    """The frame-sharded BA at world size 1 on the card repeats its CPU
+    run, float32 on both, with the tolerances of solve_ba's card test."""
+    from mayamatchmovesolver_torch.parallel import ba_sharded, make_frame_mesh
+
+    kw = dict(max_iterations=4, tau=0.1, eps1=0.0, eps2=0.0, eps3=0.0,
+              cg_iterations=40)
+    want = ba_sharded.sharded_solve_ba(_ba_problem("cpu"),
+                                       make_frame_mesh("cpu"), **kw)
+    got = ba_sharded.sharded_solve_ba(
+        ba_sharded.shard_ba_problem(_ba_problem("cpu"), frame_mesh),
+        frame_mesh, **kw)
+    assert got.cam_params.is_cuda and got.cam_params.dtype == torch.float32
+    for name in ("iterations", "stop_reason", "func_evals",
+                 "jacobian_evals"):
+        assert int(getattr(got, name)) == int(getattr(want, name)), name
+    for name in ("cam_params", "bnd_params", "shared_params"):
+        a, b = getattr(got, name).cpu().numpy(), getattr(want, name).numpy()
+        np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)
+    np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_mesh", ["no group", "nccl group"],
+                         indirect=True)
+def test_sharded_lm_on_cuda_matches_cpu(frame_mesh):
+    """The frame-sharded LM at world size 1 on the card: the CPU run's
+    iterations, stop reason and counters, parameters at 1e-10 (float64
+    on both), and the truth."""
+    from _torch_sharded_cases import static_lm_problem
+    from mayamatchmovesolver_torch.parallel import (
+        make_frame_mesh, shard_problem_arrays, sharded_levenberg_marquardt)
+    from mayamatchmovesolver_torch.solver import problem as problem_mod
+
+    states = []
+    for device, mesh in (("cpu", make_frame_mesh("cpu")),
+                         ("cuda", frame_mesh)):
+        prob = shard_problem_arrays(static_lm_problem("torch", 8, device),
+                                    mesh)
+        states.append(sharded_levenberg_marquardt(
+            prob, problem_mod.initial_parameters(prob), mesh,
+            max_iterations=30))
+    want, got = states
+    assert got.params.is_cuda
+    for name in ("it", "stop", "nfev", "njev"):
+        assert int(getattr(got, name)) == int(getattr(want, name)), name
+    np.testing.assert_allclose(got.params.cpu().numpy(), want.params.numpy(),
+                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(float(got.params[0]), 0.5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_mesh", ["nccl group"], indirect=True)
+def test_sharded_dryrun_ba_on_cuda_meets_its_thresholds(frame_mesh):
+    """__graft_entry__.py's dryrun_multichip BA (64 frames, 96 bundles,
+    focal and classic distortion in the border, float32, 10 iterations,
+    CG 25) under a one-rank NCCL group, held to its thresholds
+    (chip_smoke.sharded_dryrun raises when one is missed)."""
+    from chip_smoke import sharded_dryrun
+
+    result = sharded_dryrun(frame_mesh.device, frame_mesh)
+    assert result.cam_params.is_cuda and result.cam_params.shape == (64, 6)
+    assert int(result.iterations) == 10

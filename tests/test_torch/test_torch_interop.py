@@ -76,7 +76,8 @@ PORT_MODULES = sorted(
 
 def test_every_port_module_imports_without_jax():
     for reached in ("solver.lm", "api", "sfm.camerasolve",
-                    "solver.strategies"):
+                    "solver.strategies", "parallel.ba_sharded",
+                    "parallel.multihost"):
         assert "mayamatchmovesolver_torch." + reached in PORT_MODULES
     code = (
         "import importlib, sys\n"

@@ -202,16 +202,55 @@ def test_refusal_string_matches(lens_focal):
             == results[0].as_key_value_strings())
 
 
+def _assert_same_result(t_res, j_res, tol=1e-6):
+    """Equal result strings, but for the timers and the error values,
+    which agree within `tol` px."""
+    def split(res):
+        lines = [ln for ln in res.as_key_value_strings()
+                 if not ln.startswith(("timer_", "error_"))]
+        errors = [res.error_initial, res.error_final, res.error_avg,
+                  res.error_max, res.error_min] + res.per_frame_error.errors
+        return lines, errors
+
+    (t_lines, t_err), (j_lines, j_err) = split(t_res), split(j_res)
+    assert t_lines == j_lines
+    np.testing.assert_allclose(t_err, j_err, atol=tol)
+
+
 @pytest.mark.parametrize("option,value,match", [
     ("solver_type", t_registry.SOLVER_TYPE_LM_SHARDED, "item 14"),
     ("solver_type", t_registry.SOLVER_TYPE_BA_SHARDED, "item 14"),
-])
+], ids=["solver_type-2-item 14", "solver_type-3-item 14"])
 def test_solve_refuses_unported_options(lens_focal, option, value, match):
-    _, (scene, attrs, lens, sa, _) = lens_focal
-    options = dataclasses.replace(
-        t_solve.SolverOptions(), **{option: value})
-    with pytest.raises(NotImplementedError, match=match):
-        t_solve.solve(scene, attrs, [0], sa, options, lens=lens)
+    """The sharded solver types, once refused (ROADMAP item 14), now give
+    the JAX package's result.  lm_sharded with only the static focal and
+    distortion solved runs the frame-sharded LM in both: the JAX package
+    over its 8 test devices (a frame each), the port at world size 1 —
+    the same arithmetic up to the order of a sum.  ba_schur_sharded on a
+    solve without bundles falls back to the dense LM in both, with the
+    bridge's reason."""
+    results, attrs_out = [], []
+    for (scene, attrs, lens, sa, _), solve_mod in zip(lens_focal,
+                                                      (j_solve, t_solve)):
+        if value == t_registry.SOLVER_TYPE_LM_SHARDED:
+            sa = sa[6:]
+        options = dataclasses.replace(
+            solve_mod.SolverOptions(image_width=1920.0), **{option: value})
+        out, result = solve_mod.solve(scene, attrs, np.arange(attrs.num_frames),
+                                      sa, options, lens=lens)
+        results.append(result)
+        attrs_out.append(out)
+    j_res, t_res = results
+    assert t_res.success
+    assert t_res.solver_type_name == (
+        "lm_sharded" if value == t_registry.SOLVER_TYPE_LM_SHARDED
+        else "lm_jax")
+    _assert_same_result(t_res, j_res)
+    np.testing.assert_allclose(t_res.solved_parameters,
+                               np.asarray(j_res.solved_parameters), atol=1e-6)
+    np.testing.assert_allclose(to_numpy(attrs_out[1].static_values),
+                               np.asarray(attrs_out[0].static_values),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("option,value", [
@@ -242,7 +281,13 @@ def test_solve_with_a_host_hook_equals_the_plain_solve(lens_focal, option,
 
 
 def test_solve_refuses_unported_default_solver(lens_focal, monkeypatch):
-    _, (scene, attrs, lens, sa, _) = lens_focal
+    """The registry default from the environment, once refused for the
+    sharded types (ROADMAP item 14), picks ba_schur_sharded in both
+    packages: a one-frame solve without bundles falls back to the dense
+    LM with the same reason and result."""
     monkeypatch.setenv(t_registry.DEFAULT_SOLVER_ENV_VAR, "ba_schur_sharded")
-    with pytest.raises(NotImplementedError, match="ba_schur_sharded"):
-        t_solve.solve(scene, attrs, [0], sa, lens=lens)
+    results = [solve_mod.solve(scene, attrs, [0], sa, lens=lens)[1]
+               for (scene, attrs, lens, sa, _), solve_mod in zip(
+                   lens_focal, (j_solve, t_solve))]
+    assert "ba fallback to dense" in results[1].reason_string
+    _assert_same_result(results[1], results[0])
