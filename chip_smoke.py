@@ -1236,14 +1236,14 @@ def phase_stack_and_warp(device, distortion):
     from mayamatchmovesolver_torch import models as models_mod
     from mayamatchmovesolver_torch.ops import stmap as stmap_mod
     from mayamatchmovesolver_torch.ops import warp
+    from mayamatchmovesolver_torch.utils.profiler import counters
 
     tag = "[11 stack]"
     with tempfile.TemporaryDirectory() as folder:
         stack, fb = lens_file_stack(distortion, device, folder)
 
     def launches():
-        return (stmap_mod.stmap_cuda.launches,
-                stmap_mod.stmap_layer_cuda.launches)
+        return (counters["stmap.launches"], counters["stmap_layer.launches"])
 
     maps = {}
     for direction in ("distort", "undistort"):
@@ -1300,9 +1300,9 @@ def phase_stack_and_warp(device, distortion):
         raise AssertionError("the identity warp is not the image")
     # Through the solved lens's map, built by warp_image_with_lens on the
     # card (the kernel): the same map on the CPU gives the same image.
-    before = stmap_mod.stmap_cuda.launches
+    before = counters["stmap.launches"]
     warped = warp.warp_image_with_lens(image, stack[0], fb, "undistort")
-    launched = stmap_mod.stmap_cuda.launches - before
+    launched = counters["stmap.launches"] - before
     on_cpu = warp.warp_image(image_cpu, one.cpu())
     diff = float((warped.cpu() - on_cpu).abs().max())
     moved = float((warped - image).abs().mean())
@@ -2829,19 +2829,18 @@ def main():
         print("chip_smoke: no CUDA device; this test runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+    from mayamatchmovesolver_torch.utils.profiler import counters
 
     device = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
     checked = phase_kernel_vs_plain(device)
 
-    # Each main path runs with the launch counts set to 0 just before it
-    # and read just after.  Every path exports through the ST-map kernel;
-    # the stack path runs its layer variant too.
-    wrappers = {"stmap": stmap_mod.stmap_cuda,
-                "stmap_layer": stmap_mod.stmap_layer_cuda}
-    launches = {kernel: {} for kernel in wrappers}
+    # Each main path's launches are counted from just before it to just
+    # after.  Every path exports through the ST-map kernel; the stack
+    # path runs its layer variant too.
+    kernels = ("stmap", "stmap_layer")
+    launches = {kernel: {} for kernel in kernels}
     figures = {}
 
     def production():
@@ -2860,12 +2859,12 @@ def main():
                        ("cli", lambda: phase_cli(device)),
                        ("tools", lambda: phase_tools(device)),
                        ("sharded", lambda: phase_sharded(device, figures))):
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        before = counters.copy()
         t0 = time.perf_counter()
         made = path()
-        for kernel, wrapper in wrappers.items():
-            launches[kernel][name] = wrapper.launches
+        for kernel in kernels:
+            key = kernel + ".launches"
+            launches[kernel][name] = counters[key] - before[key]
         print("[%s] launches on the %s path: stmap_cuda %d, "
               "stmap_layer_cuda %d (path %.1f s)" % (
                   name, name, launches["stmap"][name],

@@ -9,12 +9,12 @@ as an RGBA float32 ST-map (R=S, G=T, B=0, A=1).
                       device.
   stmap_cuda        — the Hopper kernel (csrc/stmap.cu, mmsolver_stmap)
                       for the four 3DE models; counts its launches in
-                      stmap_cuda.launches.
+                      profiler.counters["stmap.launches"].
   stmap_layer_torch — one further layer of a lens stack applied to a
                       map, plain PyTorch, any device.
   stmap_layer_cuda  — the same by the kernel's layer variant
                       (mmsolver_stmap_layer), in place; counts its
-                      launches in stmap_layer_cuda.launches.
+                      launches in profiler.counters["stmap_layer.launches"].
   stmap             — the dispatcher: the kernel on a CUDA device, the
                       plain version on the CPU and for Passthrough.
   stmap_stack_torch — a lens-layer stack in plain PyTorch, any device.
@@ -28,6 +28,11 @@ _kernel_params) runs in Python floats, which are float64, after one
 device-to-host transfer a call: it folds the direction, the film back
 and the image size into two affine maps around the polynomial core and
 hands the kernel one float32 array.
+
+A CUDA call is the span "stmap.call" (utils/profiler.py), and inside it
+"stmap.host_read" (the transfer, counted in
+profiler.counters["host_reads"]), "stmap.pack" (the host arithmetic) and
+"stmap.launch" (the output's allocation and the launch).
 """
 
 import dataclasses
@@ -38,6 +43,8 @@ import torch
 
 from mayamatchmovesolver_torch import _kernels
 from mayamatchmovesolver_torch.models import tde
+from mayamatchmovesolver_torch.utils import profiler
+from mayamatchmovesolver_torch.utils.profiler import span
 
 # Core ids of csrc/stmap.cu.
 _CORE_CLASSIC = 0
@@ -106,10 +113,11 @@ def _host_values(*objs):
                for t in tensors):
             tensors = [t.to(device=first.device, dtype=torch.float64)
                        for t in tensors]
-        with torch.no_grad():
+        with span("stmap.host_read"), torch.no_grad():
             # reshape: every field is one number, or this raises.
             stacked = torch.stack(tensors).reshape(len(tensors))
-        fetched = iter(stacked.cpu().tolist())
+            fetched = iter(stacked.cpu().tolist())
+        profiler.counters["host_reads"] += 1
         values = [next(fetched) if isinstance(v, torch.Tensor) else v
                   for v in values]
     flat = iter(values)
@@ -244,7 +252,8 @@ def _kernel_params(model, film_back, direction, size, host_values=None):
     `host_values` = (the film back's, the model's) where the caller has
     fetched them already (_host_values)."""
     fb_values, values = host_values or _host_values(film_back, model)
-    return _pack_params(model, values, fb_values, direction, size)
+    with span("stmap.pack"):
+        return _pack_params(model, values, fb_values, direction, size)
 
 
 def _launch_args(st_map, core_id, direction, params):
@@ -277,7 +286,7 @@ def stmap_cuda(model, film_back, width, height, direction="distort", *,
     use.  The kernel takes no tensor input: it writes the contiguous
     float32 output allocated here.  `host_values` spares the
     device-to-host transfer (see _kernel_params).  Each launch adds one
-    to stmap_cuda.launches.
+    to profiler.counters["stmap.launches"].
     """
     device = torch.device(device)
     if device.type != "cuda":
@@ -288,15 +297,16 @@ def stmap_cuda(model, film_back, width, height, direction="distort", *,
     if width <= 0 or height <= 0:
         raise ValueError("image size must be positive: %dx%d"
                          % (width, height))
-    core_id, params = _kernel_params(model, film_back, direction,
-                                     (width, height), host_values)
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=device)
-    _launch(_kernels.stmap_functions()[0], out, core_id, direction, params)
-    stmap_cuda.launches += 1
+    with span("stmap.call"):
+        core_id, params = _kernel_params(model, film_back, direction,
+                                         (width, height), host_values)
+        with span("stmap.launch"):
+            out = torch.empty((height, width, 4), dtype=torch.float32,
+                              device=device)
+            _launch(_kernels.stmap_functions()[0], out, core_id, direction,
+                    params)
+    profiler.counters["stmap.launches"] += 1
     return out
-
-
-stmap_cuda.launches = 0
 
 
 def stmap_layer_cuda(st_map, model, film_back, direction="distort", *,
@@ -308,7 +318,7 @@ def stmap_layer_cuda(st_map, model, film_back, direction="distort", *,
     `st_map` must be a contiguous float32 (H, W, 4) tensor on a CUDA
     device; anything else raises.  `host_values` spares the
     device-to-host transfer (see _kernel_params).  Each launch adds one
-    to stmap_layer_cuda.launches.
+    to profiler.counters["stmap_layer.launches"].
     """
     if not isinstance(st_map, torch.Tensor) or not st_map.is_cuda:
         raise ValueError("stmap_layer_cuda needs a map on a CUDA device")
@@ -321,14 +331,14 @@ def stmap_layer_cuda(st_map, model, film_back, direction="distort", *,
         raise ValueError("the map must be contiguous")
     if direction not in ("distort", "undistort"):
         raise ValueError("direction must be 'distort' or 'undistort'")
-    core_id, params = _kernel_params(model, film_back, direction, None,
-                                     host_values)
-    _launch(_kernels.stmap_functions()[1], st_map, core_id, direction, params)
-    stmap_layer_cuda.launches += 1
+    with span("stmap.call"):
+        core_id, params = _kernel_params(model, film_back, direction, None,
+                                         host_values)
+        with span("stmap.launch"):
+            _launch(_kernels.stmap_functions()[1], st_map, core_id,
+                    direction, params)
+    profiler.counters["stmap_layer.launches"] += 1
     return st_map
-
-
-stmap_layer_cuda.launches = 0
 
 
 def stmap(model, film_back, width, height, direction="distort", *, device):
@@ -396,10 +406,12 @@ def stmap_stack(models, film_back, width, height, direction="distort", *,
     if not layers:
         return stmap(tde.Passthrough(), film_back, width, height, direction,
                      device=device)
-    fb_values, *layer_values = _host_values(film_back, *layers)
-    out = stmap_cuda(layers[0], film_back, width, height, direction,
-                     device=device, host_values=(fb_values, layer_values[0]))
-    for model, values in zip(layers[1:], layer_values[1:]):
-        stmap_layer_cuda(out, model, film_back, direction,
-                         host_values=(fb_values, values))
+    with span("stmap.call"):
+        fb_values, *layer_values = _host_values(film_back, *layers)
+        out = stmap_cuda(layers[0], film_back, width, height, direction,
+                         device=device,
+                         host_values=(fb_values, layer_values[0]))
+        for model, values in zip(layers[1:], layer_values[1:]):
+            stmap_layer_cuda(out, model, film_back, direction,
+                             host_values=(fb_values, values))
     return out

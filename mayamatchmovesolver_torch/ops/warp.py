@@ -13,6 +13,8 @@ pixel, v up, pixel centers at half-integers.
 
 import torch
 
+from mayamatchmovesolver_torch.utils.profiler import span
+
 
 def _bilinear_sample(image, u, v):
     """Sample image (H, W, C) at continuous UV in [0, 1] (v up), edge
@@ -41,8 +43,10 @@ def warp_image(image, stmap):
     semantics the maps are produced for), on the image's device.
 
     image: (H, W, C) float; stmap: (H', W', >=2) — channels 0/1 are the
-    source UV per destination pixel.  Returns (H', W', C)."""
-    return _bilinear_sample(image, stmap[..., 0], stmap[..., 1])
+    source UV per destination pixel.  Returns (H', W', C).  The call is
+    the span "warp.call" (utils/profiler.py)."""
+    with span("warp.call"):
+        return _bilinear_sample(image, stmap[..., 0], stmap[..., 1])
 
 
 def warp_image_with_lens(image, model, film_back, direction="distort",

@@ -6,12 +6,66 @@ three tracing layers (SURVEY.md section 5): solver phase timers
 test.  Here: wall-clock phase timers and cProfile (host code, copied),
 plus a torch.profiler trace of the host and CUDA timeline in the place
 of the reference's jax.profiler trace.
+
+The program's own instrumentation lives here too, one of each kind:
+
+  span(name)  a host range "mmsolver.<name>" at a layer boundary.  Off
+              (the default) it costs one flag test and returns a shared
+              no-op context; under tracing() it is a
+              torch.profiler.record_function, so a running profiler
+              capture holds it on the same clock as the CUDA kernels,
+              nested in the spans and ranges around it.
+  tracing()   turns spans on for its block; xla_trace enters it.
+  counters    integers counted at the same boundaries, always on:
+              "stmap.launches" and "stmap_layer.launches" (kernel
+              launches of ops/stmap.py's two C entry points) and
+              "host_reads" (device-to-host transfers of
+              ops/stmap.py::_host_values).
 """
 
+import collections
 import contextlib
 import cProfile
 import pstats
 import time
+
+import torch
+
+counters = collections.Counter()
+
+_tracing = False
+
+
+class _Off:
+    """The span of tracing off, a context that does nothing.  Its methods
+    are a bound builtin, which the with statement calls as it is, with no
+    Python frame: an empty format string ignores its arguments and
+    returns '', which is false, so an exception passes through."""
+
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
+
+
+_OFF = _Off()
+
+
+def span(name):
+    """A profiler range "mmsolver.<name>" around a block while tracing()
+    is on; a shared no-op context otherwise."""
+    if not _tracing:
+        return _OFF
+    return torch.profiler.record_function("mmsolver." + name)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans on for the block; the state before is restored after."""
+    global _tracing
+    previous, _tracing = _tracing, True
+    try:
+        yield
+    finally:
+        _tracing = previous
 
 
 class PhaseTimer:
@@ -48,9 +102,9 @@ def xla_trace(log_dir):
     """Capture a torch.profiler trace of the block into log_dir: one
     `*.pt.trace.json` file (view with TensorBoard, Perfetto or
     chrome://tracing) holding the host activity and, where a CUDA
-    device is present, the kernels on it.  Named as the reference's
-    jax.profiler capture, whose role it takes."""
-    import torch
+    device is present, the kernels on it, with the program's spans.
+    Named as the reference's jax.profiler capture, whose role it
+    takes."""
     from torch.profiler import (
         ProfilerActivity,
         profile,
@@ -60,8 +114,9 @@ def xla_trace(log_dir):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with tracing(), profile(
+            activities=activities,
+            on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
 
 

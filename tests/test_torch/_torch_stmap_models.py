@@ -1,7 +1,8 @@
 """The lens models the ST-map tests use: the parameter sets of
 tests/test_ops/test_stmap.py::_all_models, as (class name, parameters)
-for either package.  Imports nothing of jax, so the tests that run on
-the card can share it."""
+for either package, and how those tests read the program's spans in a
+profiler capture.  Imports nothing of jax, so the tests that run on the
+card can share it."""
 
 FILM_BACK = dict(width_cm=3.6, height_cm=2.4, offset_x_cm=0.05,
                  offset_y_cm=-0.02)
@@ -49,3 +50,20 @@ def torch_model(name, device="cpu"):
     kw = dict(device=device, dtype=torch.float32)
     return (getattr(t_models, cls_name).create(**params, **kw),
             t_models.FilmBack.create(**FILM_BACK, **kw))
+
+
+def program_ranges(events):
+    """(span, the span it is nested in or None) of each host range
+    "mmsolver.<span>" among torch.profiler events, in the order they
+    opened."""
+    from torch.autograd import DeviceType
+
+    def span(event):
+        while event is not None and not event.name.startswith("mmsolver."):
+            event = event.cpu_parent
+        return None if event is None else event.name[len("mmsolver."):]
+
+    ranges = sorted((e for e in events if e.device_type == DeviceType.CPU
+                     and e.name.startswith("mmsolver.")),
+                    key=lambda e: (e.time_range.start, -e.time_range.end))
+    return [(span(e), span(e.cpu_parent)) for e in ranges]

@@ -32,6 +32,7 @@ import torch
 
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
 from mayamatchmovesolver_torch import cli as t_cli
+from mayamatchmovesolver_torch.utils.profiler import counters
 from mayamatchmovesolver_tpu import cli as j_cli
 from mayamatchmovesolver_tpu.core.constants import FilmFit
 from mayamatchmovesolver_tpu.io import exr as j_exr
@@ -515,13 +516,13 @@ def test_device_cuda_without_a_card_stops(shot, tmp_path, capsys, verb):
         "camera-solve": ["camera-solve", "--markers", d + "/m10.uv",
                          "--output", out],
     }[verb]
-    launches = t_stmap.stmap_cuda.launches
+    launches = counters["stmap.launches"]
     for extra in ([], ["--device", "cuda"]):
         rc, lines = _run(t_cli, argv + extra, capsys)
         assert rc == ("SystemExit: --device cuda: no CUDA device is "
                       "available; pass --device cpu to run on the CPU")
         assert not lines and not os.path.exists(out)
-    assert t_stmap.stmap_cuda.launches == launches
+    assert counters["stmap.launches"] == launches
 
 
 def test_module_entry_point_runs_and_refuses_a_missing_card(tmp_path):

@@ -4,7 +4,8 @@ stacks, its checkpoints, its robust relative pose, its from-scratch
 camera solve, its Collection API, its command line (lensdistort,
 reproject), its tools (ray-mesh intersection, screen-space rig bake,
 reparent) and its frame-sharded solvers (with no process group and under
-a one-rank NCCL group) on the card, and the no-fallback rule.
+a one-rank NCCL group) on the card, the ST-map wrapper's spans and
+counters there, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -27,10 +28,11 @@ import pytest
 import torch
 
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
-from _torch_stmap_models import MODELS, torch_model, weaker
+from _torch_stmap_models import MODELS, program_ranges, torch_model, weaker
 from mayamatchmovesolver_torch.solver import ba as t_ba
 from mayamatchmovesolver_torch.solver import checkpoint as t_checkpoint
 from mayamatchmovesolver_torch.solver import lm as t_lm
+from mayamatchmovesolver_torch.utils.profiler import counters
 
 ATOL = 2e-5
 
@@ -39,15 +41,15 @@ def test_stmap_on_cuda_launches_the_kernel_or_raises():
     """No fallback: a CUDA device means the kernel or an exception,
     never a CPU result."""
     model, fb = torch_model("classic")
-    launches = t_stmap.stmap_cuda.launches
+    launches = counters["stmap.launches"]
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             t_stmap.stmap(model, fb, 64, 32, device="cuda")
-        assert t_stmap.stmap_cuda.launches == launches
+        assert counters["stmap.launches"] == launches
         return
     out = t_stmap.stmap(model, fb, 64, 32, device="cuda")
     assert out.is_cuda
-    assert t_stmap.stmap_cuda.launches == launches + 1
+    assert counters["stmap.launches"] == launches + 1
 
 
 @pytest.mark.cuda
@@ -117,7 +119,7 @@ def test_solve_ba_on_cuda_matches_cpu(assembly, linear_solver):
 
 
 def _launches():
-    return (t_stmap.stmap_cuda.launches, t_stmap.stmap_layer_cuda.launches)
+    return (counters["stmap.launches"], counters["stmap_layer.launches"])
 
 
 @pytest.mark.cuda
@@ -177,10 +179,10 @@ def test_stmap_layer_cuda_kernel_matches_plain_version(name, direction):
             np.random.RandomState(4).uniform(-1, 1, (height, width, 2)),
             dtype=torch.float32, device="cuda")
         work = source.clone()
-        launches = t_stmap.stmap_layer_cuda.launches
+        launches = counters["stmap_layer.launches"]
         got = t_stmap.stmap_layer_cuda(work, model, fb, direction)
         assert got is work
-        assert t_stmap.stmap_layer_cuda.launches == launches + 1
+        assert counters["stmap_layer.launches"] == launches + 1
         want = t_stmap.stmap_layer_torch(source, model, fb, direction)
         torch.cuda.synchronize()
         np.testing.assert_allclose(
@@ -195,7 +197,7 @@ def test_stmap_layer_cuda_refuses_what_the_kernel_does_not_take():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     model, fb = torch_model("classic", device="cuda")
     good = t_stmap.stmap_cuda(model, fb, 64, 32, device="cuda")
-    launches = t_stmap.stmap_layer_cuda.launches
+    launches = counters["stmap_layer.launches"]
     for bad, message in (
             (good.cpu(), "on a CUDA device"),
             (good.double(), "float32"),
@@ -208,12 +210,62 @@ def test_stmap_layer_cuda_refuses_what_the_kernel_does_not_take():
             t_stmap.stmap_layer_cuda(bad, model, fb)
     with pytest.raises(ValueError, match="direction"):
         t_stmap.stmap_layer_cuda(good, model, fb, "sideways")
-    assert t_stmap.stmap_layer_cuda.launches == launches
+    assert counters["stmap_layer.launches"] == launches
     kept = good.clone()
     t_stmap.stmap_layer_cuda(good, model, fb)
     torch.cuda.synchronize()
-    assert t_stmap.stmap_layer_cuda.launches == launches + 1
+    assert counters["stmap_layer.launches"] == launches + 1
     assert not torch.equal(good, kept)
+
+
+@pytest.mark.cuda
+def test_stmap_spans_and_counters_on_cuda():
+    """Under a capture with spans on, each CUDA call of the ST-map wrapper
+    is a "stmap.call" holding its read (one counted host read, none when
+    handed the values), its packing and its launch (one counted launch);
+    a stack reads once for its layers; a warp is one "warp.call"."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+    from mayamatchmovesolver_torch.utils import profiler as t_profiler
+
+    model, fb = torch_model("classic", device="cuda")
+    radial, _ = torch_model("radial_deg4", device="cuda")
+    before = counters.copy()
+    call = [("stmap.call", None), ("stmap.host_read", "stmap.call"),
+            ("stmap.pack", "stmap.call"), ("stmap.launch", "stmap.call")]
+    given = t_stmap._host_values(fb, model)
+    reads = counters["host_reads"]
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def captured(fn):
+        with t_profiler.tracing(), profile(activities=activities) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, program_ranges(prof.events())
+
+    st_map, ranges = captured(lambda: t_stmap.stmap_cuda(
+        model, fb, 64, 32, device="cuda"))
+    assert ranges == call and counters["host_reads"] == reads + 1
+    _, ranges = captured(lambda: t_stmap.stmap_cuda(
+        model, fb, 64, 32, device="cuda", host_values=given))
+    assert ranges == [call[0]] + call[2:]
+    _, ranges = captured(lambda: t_stmap.stmap_layer_cuda(
+        st_map, radial, fb))
+    assert ranges == call and counters["host_reads"] == reads + 2
+    _, ranges = captured(lambda: t_stmap.stmap_stack(
+        [model, radial], fb, 64, 32, device="cuda"))
+    inner = [(name, "stmap.call") for name, _ in call[:1] + call[2:]]
+    assert ranges == call[:2] + inner + inner
+    assert counters["host_reads"] == reads + 3
+    image = torch.rand(32, 64, 4, device="cuda")
+    _, ranges = captured(lambda: t_warp.warp_image(image, st_map))
+    assert ranges == [("warp.call", None)]
+    assert counters["stmap.launches"] == before["stmap.launches"] + 3
+    assert counters["stmap_layer.launches"] == (
+        before["stmap_layer.launches"] + 2)
 
 
 def _pose_shot(device, frames=6, bundles=8):
@@ -445,11 +497,11 @@ def test_cli_lensdistort_on_cuda_writes_the_kernels_map(tmp_path, direction):
     from mayamatchmovesolver_torch.io import exr
 
     out = str(tmp_path / "st.exr")
-    launches = t_stmap.stmap_cuda.launches
+    launches = counters["stmap.launches"]
     assert cli.main(["lensdistort", "--distortion", "0.08", "--width", "640",
                      "--height", "360", "--direction", direction,
                      "--output", out, "--device", "cuda"]) == 0
-    assert t_stmap.stmap_cuda.launches == launches + 1
+    assert counters["stmap.launches"] == launches + 1
     f32 = dict(device="cuda", dtype=torch.float32)
     want = t_stmap.stmap_torch(
         models.TdeClassic.create(distortion=0.08, **f32),

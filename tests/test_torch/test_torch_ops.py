@@ -21,6 +21,7 @@ import mayamatchmovesolver_torch.models as t_models
 import mayamatchmovesolver_torch.ops.lensdeform as t_deform
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
 import mayamatchmovesolver_torch.ops.warp as t_warp
+from mayamatchmovesolver_torch.utils.profiler import counters
 import mayamatchmovesolver_tpu.models as j_models
 import mayamatchmovesolver_tpu.ops.lensdeform as j_deform
 import mayamatchmovesolver_tpu.ops.stmap as j_stmap
@@ -163,10 +164,10 @@ def test_stmap_stack_edge_cases():
     back = t_models.undistort(stack[0], fb,
                               t_models.undistort(stack[1], fb, there))
     np.testing.assert_allclose(to_numpy(back), to_numpy(pts), atol=1e-8)
-    launches = t_stmap.stmap_cuda.launches
+    launches = counters["stmap.launches"]
     t_stmap.stmap([model, model], _models("torch", ())[1], 16, 8,
                   device="cpu")
-    assert t_stmap.stmap_cuda.launches == launches
+    assert counters["stmap.launches"] == launches
 
 
 def _image_and_uv(seed=0):

@@ -4,11 +4,21 @@ with SolverOptions.profile_dir.
 PhaseTimer and python_profile are copies: under one fake clock both
 packages' timers give the same summary, and both profiles write what
 pstats reads.  xla_trace takes the role of the reference's jax.profiler
-capture with torch.profiler: a trace file in log_dir.  solve() with
-profile_dir writes one and solves as without it (after
+capture with torch.profiler: a trace file in log_dir, with the
+program's spans.  solve() with profile_dir writes one and solves as
+without it (after
 tests/test_solver/test_interrupt.py::test_profile_dir_captures_trace).
+
+The port's own spans and counters have no counterpart in the reference:
+off, a span is the one shared no-op context and a capture holds none;
+on, the ST-map wrapper's and the warp's spans nest as named, and the
+wrapper counts one host read a call that fetches lens values.  Without
+a card a CUDA call of the wrapper raises at the output's allocation,
+inside its launch span, after its read and its packing: the spans up to
+there are in the capture, and no launch is counted.
 """
 
+import dataclasses
 import json
 import os
 import pstats
@@ -18,9 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+import mayamatchmovesolver_torch.ops.stmap as t_stmap
+import mayamatchmovesolver_torch.ops.warp as t_warp
 import mayamatchmovesolver_torch.utils.profiler as t_profiler
 import mayamatchmovesolver_tpu.utils.profiler as j_profiler
+from _torch_stmap_models import program_ranges, torch_model
 from mayamatchmovesolver_tpu.core.constants import FilmFit
+from torch.profiler import ProfilerActivity, profile
 
 PROFILERS = {"jax": j_profiler, "torch": t_profiler}
 
@@ -79,6 +93,119 @@ def test_xla_trace_writes_a_trace_file(tmp_path):
     assert any(e.get("name") == "aten::mm" for e in events)
 
 
+def test_xla_trace_holds_the_programs_spans(tmp_path):
+    log_dir = str(tmp_path / "trace")
+    image = torch.rand(6, 8, 4)
+    assert t_profiler.span("warp.call") is t_profiler.span("stmap.call")
+    with t_profiler.xla_trace(log_dir):
+        assert t_profiler.span("warp.call") is not t_profiler.span("warp.call")
+        t_warp.warp_image(image, torch.rand(6, 8, 4))
+    assert t_profiler.span("warp.call") is t_profiler.span("stmap.call")
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "mmsolver.warp.call" for e in events)
+
+
+def test_tracing_restores_the_state_before():
+    with t_profiler.tracing():
+        with pytest.raises(ValueError):
+            with t_profiler.tracing():
+                raise ValueError("left by an exception")
+        assert t_profiler.span("x") is not t_profiler.span("x")
+    assert t_profiler.span("x") is t_profiler.span("x")
+
+
+def _captured(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return program_ranges(prof.events())
+
+
+def _stmap_cuda(model, fb, **kw):
+    """stmap_cuda on the card, or its refusal at the allocation without
+    one."""
+    if torch.cuda.is_available():
+        return t_stmap.stmap_cuda(model, fb, 16, 8, device="cuda", **kw)
+    with pytest.raises((RuntimeError, AssertionError)):
+        t_stmap.stmap_cuda(model, fb, 16, 8, device="cuda", **kw)
+
+
+def test_spans_off_leave_no_range_yet_count():
+    model, fb = torch_model("classic")
+    counters = t_profiler.counters
+    reads = counters["host_reads"]
+    ranges = _captured(lambda: (
+        t_warp.warp_image(torch.rand(6, 8, 4), torch.rand(6, 8, 4)),
+        t_stmap._host_values(fb, model), _stmap_cuda(model, fb)))
+    assert ranges == []
+    assert counters["host_reads"] == reads + 2
+
+
+def test_spans_nest_as_named():
+    model, fb = torch_model("classic")
+    launches = t_profiler.counters["stmap.launches"]
+    with t_profiler.tracing():
+        ranges = _captured(lambda: _stmap_cuda(model, fb))
+        assert ranges == [("stmap.call", None),
+                          ("stmap.host_read", "stmap.call"),
+                          ("stmap.pack", "stmap.call"),
+                          ("stmap.launch", "stmap.call")]
+        given = t_stmap._host_values(fb, model)
+        ranges = _captured(lambda: _stmap_cuda(model, fb, host_values=given))
+        assert ranges == [("stmap.call", None), ("stmap.pack", "stmap.call"),
+                          ("stmap.launch", "stmap.call")]
+        ranges = _captured(lambda: t_warp.warp_image(
+            torch.rand(6, 8, 4), torch.rand(6, 8, 4)))
+        assert ranges == [("warp.call", None)]
+    ran = torch.cuda.is_available()
+    assert t_profiler.counters["stmap.launches"] == launches + 2 * ran
+
+
+def test_host_values_counts_one_read_a_call():
+    model, fb = torch_model("classic")
+    counters = t_profiler.counters
+    reads = counters["host_reads"]
+    for _ in range(3):
+        t_stmap._host_values(fb, model)
+    assert counters["host_reads"] == reads + 3
+    mixed = dataclasses.replace(model, distortion=torch.tensor(
+        0.1, dtype=torch.float64))
+    t_stmap._host_values(fb, mixed)
+    assert counters["host_reads"] == reads + 4
+    as_floats = [type(o)(**v) for o, v in zip(
+        (fb, model), t_stmap._host_values(fb, model))]
+    assert counters["host_reads"] == reads + 5
+    with t_profiler.tracing():
+        ranges = _captured(lambda: t_stmap._host_values(*as_floats))
+    assert ranges == [] and counters["host_reads"] == reads + 5
+
+
+def test_stmap_stack_reads_once_for_its_layers():
+    """The stack's one read lies in its own span; its layers' calls are
+    handed the values and read nothing."""
+    model, fb = torch_model("classic")
+    radial, _ = torch_model("radial_deg4")
+    reads = t_profiler.counters["host_reads"]
+
+    def stack():
+        if torch.cuda.is_available():
+            return t_stmap.stmap_stack([model, radial], fb, 16, 8,
+                                       device="cuda")
+        with pytest.raises((RuntimeError, AssertionError)):
+            t_stmap.stmap_stack([model, radial], fb, 16, 8, device="cuda")
+
+    with t_profiler.tracing():
+        ranges = _captured(stack)
+    assert t_profiler.counters["host_reads"] == reads + 1
+    assert ranges[:4] == [("stmap.call", None),
+                          ("stmap.host_read", "stmap.call"),
+                          ("stmap.call", "stmap.call"),
+                          ("stmap.pack", "stmap.call")]
+    assert [r for r in ranges if r[0] == "stmap.host_read"] == [
+        ("stmap.host_read", "stmap.call")]
+
+
 def _tracked_scene(num_frames=8, num_bundles=6, seed=0):
     """tests/test_solver/test_interrupt.py::_tracked_scene on the port."""
     from mayamatchmovesolver_torch.scene import SceneGraph, evaluate
@@ -114,8 +241,6 @@ def _tracked_scene(num_frames=8, num_bundles=6, seed=0):
 def test_profile_dir_captures_trace(tmp_path):
     """SolverOptions(profile_dir=...) writes a torch.profiler trace of
     the solve, which solves as it does without one."""
-    import dataclasses
-
     from mayamatchmovesolver_torch.solver import SolverOptions, solve
 
     scene, attrs, cam, bundles = _tracked_scene()

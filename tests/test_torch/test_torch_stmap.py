@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import mayamatchmovesolver_torch.models as t_models
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
+from mayamatchmovesolver_torch.utils.profiler import counters
 import mayamatchmovesolver_tpu.models as j_models
 import mayamatchmovesolver_tpu.ops.stmap as j_stmap
 from _torch_port_cases import to_numpy
@@ -251,14 +252,14 @@ def test_kernel_arithmetic_holds_over_coefficients(name, direction, scales):
 
 def test_stmap_on_cpu_is_the_plain_version():
     model, fb = torch_model("classic")
-    launches = t_stmap.stmap_cuda.launches
+    launches = counters["stmap.launches"]
     got = t_stmap.stmap(model, fb, 64, 32, "undistort", device="cpu")
     want = t_stmap.stmap_torch(model, fb, 64, 32, "undistort", device="cpu")
     assert torch.equal(got, want)
     ident = t_stmap.stmap(t_models.Passthrough(), fb, 64, 32, device="cpu")
     xs = (np.arange(64) + 0.5) / 64
     np.testing.assert_allclose(to_numpy(ident)[5, :, 0], xs, atol=1e-6)
-    assert t_stmap.stmap_cuda.launches == launches
+    assert counters["stmap.launches"] == launches
 
 
 def test_stmap_refuses_what_it_does_not_port():
@@ -275,7 +276,7 @@ def test_stmap_refuses_what_it_does_not_port():
         t_stmap.stmap_cuda(model, fb, 8, 8, device="cpu")
     # The layer kernel takes a map on the card only, and counts nothing
     # for a refusal.
-    launches = t_stmap.stmap_layer_cuda.launches
+    launches = counters["stmap_layer.launches"]
     with pytest.raises(ValueError, match="on a CUDA device"):
         t_stmap.stmap_layer_cuda(stack, model, fb)
-    assert t_stmap.stmap_layer_cuda.launches == launches
+    assert counters["stmap_layer.launches"] == launches
