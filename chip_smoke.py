@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout (the
-ST-map kernel and its layer variant, both of csrc/stmap.cu), reads their
-registers and SASS opcode counts, holds each against its plain
-PyTorch version, then drives the port's main paths and checks what comes
-out:
+ST-map kernel and its layer variant, both of csrc/stmap.cu, and the
+image warp of csrc/warp.cu), reads their registers and SASS opcode
+counts, holds each ST-map kernel against its plain PyTorch version, then
+drives the port's main paths and checks what comes out:
 
   * phases 4-5: a dense lens + focal + camera solve of a synthetic HD
     shot on the card, and the ST-map export of the solved lens;
@@ -24,7 +24,9 @@ out:
     interruption, loaded and resumed to the uninterrupted solve's end;
   * phase 11: a two-layer lens file written, parsed and attached; its
     stack exported as ST maps (first layer through the kernel, second
-    through its layer variant) and an HD image warped through the maps;
+    through its layer variant) and an HD image warped through the maps
+    (one launch of the warp kernel a warp), the warp kernel timed
+    against its byte bound;
   * phase 12: the shot's camera, bundles and focal length from nothing
     but its 2D tracks: api.execute of a Collection with SolverCamera
     (RANSAC relative pose, triangulation, resection, two Schur BAs), a
@@ -226,7 +228,8 @@ STMAP_STEP_FLOPS = {"TdeClassic": 18, "TdeRadialStdDeg4": 28,
                     "TdeAnamorphicStdDeg4Rescaled": 26}
 # The timed launches of phase 3 write (and, from a map, read) this many
 # maps in turn: 4 HD maps are 133 MB, so a map has left the card's 50 MB
-# L2 before its turn comes again and the memory bound applies.
+# L2 before its turn comes again and the memory bound applies.  Phase 11
+# warps as many images through as many maps into as many outputs.
 TIMING_ROTATION = 4
 
 STMAP_SOURCE = "mayamatchmovesolver_torch/csrc/stmap.cu"
@@ -529,27 +532,44 @@ def _kernel_label(mangled):
                          ("from-pixel", "from-map")[from_map])
 
 
-def kernel_resources(report):
+def _warp_label(mangled):
+    """'float32 vec4 pair' from a warp_kernel<T, VEC4, PAIR>
+    instantiation's mangled name (csrc/warp.cu), None for another
+    symbol."""
+    import re
+
+    found = re.search(r"warp_kernelI([fd])Lb(\d)ELb(\d)E", mangled)
+    if not found:
+        return None
+    dtype, vec4, pair = found.groups()
+    return "%s %s %s" % ({"f": "float32", "d": "float64"}[dtype],
+                         ("scalar", "vec4")[int(vec4)],
+                         ("strided", "pair")[int(pair)])
+
+
+def kernel_resources(report, label=_kernel_label):
     """{label: (registers, stack bytes, spill bytes)} from ptxas's
-    --resource-usage report of csrc/stmap.cu."""
+    --resource-usage report of csrc/stmap.cu (or, with `label`
+    _warp_label, of csrc/warp.cu)."""
     import re
 
     out = {}
     for entry in report.split("Compiling entry function '")[1:]:
-        label = _kernel_label(entry.split("'", 1)[0])
+        label_of = label(entry.split("'", 1)[0])
         stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", entry)
         registers = re.search(r"Used (\d+) registers", entry)
-        if label and stack and registers:
-            out[label] = (int(registers.group(1)), int(stack.group(1)),
-                          int(stack.group(2)) + int(stack.group(3)))
+        if label_of and stack and registers:
+            out[label_of] = (int(registers.group(1)), int(stack.group(1)),
+                             int(stack.group(2)) + int(stack.group(3)))
     return out
 
 
-def sass_counts(library):
-    """{label: {opcode: count}} of every stmap_kernel instantiation in the
-    built library, by `cuobjdump -sass` (it ships with nvcc; it is an
-    error if it is missing)."""
+def sass_counts(library, label=_kernel_label):
+    """{label: {opcode: count}} of every stmap_kernel instantiation (or,
+    with `label` _warp_label, warp_kernel instantiation) in the built
+    library, by `cuobjdump -sass` (it ships with nvcc; it is an error if
+    it is missing)."""
     import collections
     import os
     import re
@@ -567,7 +587,7 @@ def sass_counts(library):
     out, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = _kernel_label(line)
+            current = label(line)
             if current:
                 out[current] = collections.Counter()
         elif current:
@@ -578,9 +598,9 @@ def sass_counts(library):
 
 
 def phase_build():
-    """Build csrc/stmap.cu, bind both entry points, and print what the
-    compiler made of each kernel: registers, stack and spills a thread
-    (ptxas) and the SASS opcode counts (cuobjdump)."""
+    """Build csrc/stmap.cu and csrc/warp.cu, bind their entry points, and
+    print what the compiler made of each kernel: registers, stack and
+    spills a thread (ptxas) and the SASS opcode counts (cuobjdump)."""
     from mayamatchmovesolver_torch import _kernels
 
     t0 = time.perf_counter()
@@ -610,6 +630,31 @@ def phase_build():
         if ops["MUFU"] or stack or spills:
             raise AssertionError("%s: a special-function opcode or a "
                                  "spill in the kernel" % label)
+
+    t0 = time.perf_counter()
+    path = _kernels.build("warp")
+    _kernels.warp_function()
+    print("[2 build] %s in %.2f s" % (path.name, time.perf_counter() - t0))
+    resources = kernel_resources(
+        _kernels.resource_usage_path("warp").read_text(), _warp_label)
+    counts = sass_counts(path, _warp_label)
+    if len(counts) != 5 or set(counts) != set(resources):
+        raise AssertionError(
+            "expected 5 warp_kernel instantiations, ptxas reports %d and "
+            "the SASS holds %d" % (len(resources), len(counts)))
+    for label in sorted(counts):
+        ops = counts[label]
+        named = ("LDG", "STG", "FMUL", "FADD", "DMUL", "DADD", "FFMA", "DFMA")
+        registers, stack, spills = resources[label]
+        print("[2 build] %-24s %2d registers, %d bytes stack, %d bytes "
+              "spilled; SASS %3d opcodes: %s, other %d" % (
+                  label, registers, stack, spills, sum(ops.values()),
+                  ", ".join("%s %d" % (n, ops[n]) for n in named),
+                  sum(v for k, v in ops.items() if k not in named)))
+        # The eager code's roundings: no product contracted into an FMA.
+        if ops["FFMA"] or ops["DFMA"] or stack or spills:
+            raise AssertionError("%s: an FMA or a spill in the warp "
+                                 "kernel" % label)
 
 
 def _layer_source_model(name, models, device):
@@ -1300,16 +1345,19 @@ def phase_stack_and_warp(device, distortion):
         raise AssertionError("the identity warp is not the image")
     # Through the solved lens's map, built by warp_image_with_lens on the
     # card (the kernel): the same map on the CPU gives the same image.
-    before = counters["stmap.launches"]
+    before = counters.copy()
     warped = warp.warp_image_with_lens(image, stack[0], fb, "undistort")
-    launched = counters["stmap.launches"] - before
+    launched = counters["stmap.launches"] - before["stmap.launches"]
+    warp_launched = counters["warp.launches"] - before["warp.launches"]
     on_cpu = warp.warp_image(image_cpu, one.cpu())
     diff = float((warped.cpu() - on_cpu).abs().max())
     moved = float((warped - image).abs().mean())
-    print("%s through the solved lens's map (%d kernel launch): max|diff "
-          "vs the CPU's warp through the same map| %.3g, mean|warped - "
-          "image| %.3g" % (tag, launched, diff, moved))
-    if (launched != 1 or not bool(warped.isfinite().all()) or not diff <= 1e-5
+    print("%s through the solved lens's map (%d ST-map and %d warp kernel "
+          "launch): max|diff vs the CPU's warp through the same map| %.3g, "
+          "mean|warped - image| %.3g" % (tag, launched, warp_launched, diff,
+                                          moved))
+    if (launched != 1 or warp_launched != 1
+            or not bool(warped.isfinite().all()) or not diff <= 1e-5
             or not moved > 1e-3):
         raise AssertionError("the lens warp left the CPU result")
     return stack, fb, image, one
@@ -1331,9 +1379,58 @@ def time_stack_and_warp(device, stack, fb, image, lens_map):
     warp_ms = _cuda_ms(lambda: warp.warp_image(image, lens_map))
     both_ms = _cuda_ms(lambda: warp.warp_image_with_lens(
         image, stack[0], fb, "undistort"))
+    plain_ms = _cuda_ms(lambda: warp._bilinear_sample(
+        image, lens_map[..., 0], lens_map[..., 1]))
     print("[11 warp times] %dx%dx4 float32: warp_image %.4f ms, "
-          "warp_image_with_lens (map + warp) %.4f ms" % (
-              HD[0], HD[1], warp_ms, both_ms))
+          "warp_image_with_lens (map + warp) %.4f ms, plain %.4f ms" % (
+              HD[0], HD[1], warp_ms, both_ms, plain_ms))
+    # The kernel alone: past the L2 (images, maps and outputs in turn),
+    # and on one image, map and output (in the L2).
+    images = [image.clone() for _ in range(TIMING_ROTATION)]
+    maps = [lens_map.clone() for _ in range(TIMING_ROTATION)]
+    outs = [torch.empty_like(image) for _ in range(TIMING_ROTATION)]
+    ms = _cuda_ms(_raw_warp(images, maps, outs), launches=100)
+    l2_ms = _cuda_ms(_raw_warp(images[:1], maps[:1], outs[:1]),
+                     launches=100)
+    del images, maps, outs
+    bound_ms = warp_bound_ms(image, lens_map)
+    print("[11 warp kernel] mmsolver_warp %.4f ms (on one image, in the L2: "
+          "%.4f ms)  bound %.4f ms by bytes (%.0f%% of it)" % (
+              ms, l2_ms, bound_ms, 100.0 * bound_ms / ms))
+    if not ms >= bound_ms:
+        raise AssertionError("the warp kernel's %.4f ms is under the bound "
+                             "of %.4f ms: the bound counts too much"
+                             % (ms, bound_ms))
+
+
+def _raw_warp(images, maps, outs):
+    """The warp kernel alone: its C entry point with the arguments made
+    once, as a no-argument call (no wrapper, no launch count) that warps
+    images[i] through maps[i] into outs[i] in turn."""
+    from mayamatchmovesolver_torch import _kernels
+    from mayamatchmovesolver_torch.ops import warp
+
+    function = _kernels.warp_function()
+    turns = itertools.cycle([warp._launch_args(*t)
+                             for t in zip(images, maps, outs)])
+
+    def launch(keep=(images, maps, outs)):  # what the addresses point to
+        err = function(*next(turns))
+        if err != 0:
+            raise RuntimeError("warp kernel launch failed: %d" % err)
+
+    return launch
+
+
+def warp_bound_ms(image, st_map):
+    """The least time one H100 could take for a warp: its bytes over the
+    memory rate, each read once (the map, the image) and the output
+    written once; a few operations a pixel weigh nothing beside them."""
+    out_bytes = st_map.shape[0] * st_map.shape[1] * image.shape[2] * (
+        image.element_size())
+    moved = (st_map.numel() * st_map.element_size()
+             + image.numel() * image.element_size() + out_bytes)
+    return moved / H100_HBM_BYTES_PER_S * 1e3
 
 
 def shot_graph(device, frames=FRAMES, bundles=BUNDLES, lens=True,

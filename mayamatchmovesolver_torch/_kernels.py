@@ -116,3 +116,30 @@ def stmap_functions():
         ]
         fn.restype = ctypes.c_int
     return functions
+
+
+@functools.lru_cache(maxsize=None)
+def warp_function():
+    """mmsolver_warp from csrc/warp.cu, with its C signature set: the
+    image's device pointer, height, width, channels and strides, the
+    map's device pointer, height, width and strides, the output's device
+    pointer, the dtype code and the stream; it returns the launch's CUDA
+    error code."""
+    fn = load("warp").mmsolver_warp
+    strides = [ctypes.c_longlong] * 3  # row, column, channel, in elements
+    fn.argtypes = [
+        ctypes.c_void_p,  # image (device)
+        ctypes.c_int,  # height
+        ctypes.c_int,  # width
+        ctypes.c_int,  # channels
+        *strides,
+        ctypes.c_void_p,  # map (device)
+        ctypes.c_int,  # output height
+        ctypes.c_int,  # output width
+        *strides,
+        ctypes.c_void_p,  # output (device, contiguous)
+        ctypes.c_int,  # dtype: 0 float32, 1 float64
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return fn

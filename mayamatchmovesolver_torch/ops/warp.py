@@ -2,9 +2,15 @@
 
 Port of mayamatchmovesolver_tpu/ops/warp.py: a bilinear resample driven
 by an ST map or by a 3DE lens model — the gather-heavy companion of the
-ST-map kernel (ops/stmap.py), in plain tensor code with the reference's
-own gather arithmetic (not grid_sample, whose edge and alignment rules
-differ).
+ST-map kernel (ops/stmap.py), with the reference's own gather arithmetic
+(not grid_sample, whose edge and alignment rules differ).
+
+  _bilinear_sample — the plain PyTorch version, any device.
+  warp_image       — on a CUDA device one launch of the hand kernel
+                     (csrc/warp.cu, mmsolver_warp), counted in
+                     profiler.counters["warp.launches"]; elsewhere
+                     _bilinear_sample.  There is no fallback: on CUDA the
+                     kernel runs or the call raises.
 
 Conventions match the ST maps this package writes: an ST map pixel
 (s, t) holds the [0, 1] UV of the SOURCE sample for that destination
@@ -13,7 +19,14 @@ pixel, v up, pixel centers at half-integers.
 
 import torch
 
+from mayamatchmovesolver_torch import _kernels
+from mayamatchmovesolver_torch.utils import profiler
 from mayamatchmovesolver_torch.utils.profiler import span
+
+# The dtype codes of csrc/warp.cu's mmsolver_warp.
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+# Sizes travel to the kernel as C ints.
+_INT_MAX = 2 ** 31 - 1
 
 
 def _bilinear_sample(image, u, v):
@@ -38,14 +51,70 @@ def _bilinear_sample(image, u, v):
     return top * (1.0 - fy) + bottom * fy
 
 
+def _launch_args(image, stmap, out):
+    """The arguments of csrc/warp.cu's mmsolver_warp for CUDA tensors, on
+    their device's current stream.  They hold addresses into the three
+    tensors, which the caller keeps alive."""
+    return (image.data_ptr(), *image.shape, *image.stride(),
+            stmap.data_ptr(), *stmap.shape[:2], *stmap.stride(),
+            out.data_ptr(), _DTYPES[image.dtype],
+            torch.cuda.current_stream(image.device).cuda_stream)
+
+
+def _launch(image, stmap, out):
+    """One launch of mmsolver_warp on the tensors' CUDA device."""
+    if image.device.index != torch.cuda.current_device():
+        with torch.cuda.device(image.device):
+            return _launch(image, stmap, out)
+    with profiler.kernel_op("mmsolver_warp"):
+        err = _kernels.warp_function()(*_launch_args(image, stmap, out))
+    if err != 0:
+        raise RuntimeError("warp kernel launch failed: CUDA error %d" % err)
+
+
+def _warp_cuda(image, stmap):
+    """warp_image by the kernel (csrc/warp.cu): the image (H, W, C >= 1)
+    and the map (H', W', >= 2) on one CUDA device, both float32 or both
+    float64, at any strides; returns a new contiguous (H', W', C) tensor.
+    Raises ValueError for anything else.  Each launch adds one to
+    profiler.counters["warp.launches"]."""
+    if not (image.is_cuda and stmap.is_cuda
+            and image.device == stmap.device):
+        raise ValueError("the CUDA warp needs the image and the map on one "
+                         "CUDA device, got %s and %s"
+                         % (image.device, stmap.device))
+    if image.dtype not in _DTYPES or stmap.dtype != image.dtype:
+        raise ValueError("the CUDA warp takes a float32 or float64 image "
+                         "and a map of the same dtype, got %s and %s"
+                         % (image.dtype, stmap.dtype))
+    if image.dim() != 3 or image.numel() == 0:
+        raise ValueError("the image must be a non-empty (H, W, C), got %s"
+                         % (tuple(image.shape),))
+    if stmap.dim() != 3 or stmap.shape[2] < 2 or stmap.numel() == 0:
+        raise ValueError("the map must be a non-empty (H', W', >=2), got %s"
+                         % (tuple(stmap.shape),))
+    if max(image.shape + stmap.shape) > _INT_MAX:
+        raise ValueError("a side of the image or the map exceeds %d"
+                         % _INT_MAX)
+    out = torch.empty((stmap.shape[0], stmap.shape[1], image.shape[2]),
+                      dtype=image.dtype, device=image.device)
+    _launch(image, stmap, out)
+    profiler.counters["warp.launches"] += 1
+    return out
+
+
 def warp_image(image, stmap):
     """Resample image through an ST map (the compositor STMap-node
     semantics the maps are produced for), on the image's device.
 
     image: (H, W, C) float; stmap: (H', W', >=2) — channels 0/1 are the
-    source UV per destination pixel.  Returns (H', W', C).  The call is
-    the span "warp.call" (utils/profiler.py)."""
+    source UV per destination pixel.  Returns (H', W', C).  On a CUDA
+    device this is one launch of the kernel (_warp_cuda), which raises
+    ValueError for what it does not take; elsewhere _bilinear_sample.
+    The call is the span "warp.call" (utils/profiler.py)."""
     with span("warp.call"):
+        if image.is_cuda or stmap.is_cuda:
+            return _warp_cuda(image, stmap)
         return _bilinear_sample(image, stmap[..., 0], stmap[..., 1])
 
 

@@ -16,9 +16,18 @@ The program's own instrumentation lives here too, one of each kind:
               capture holds it on the same clock as the CUDA kernels,
               nested in the spans and ranges around it.
   tracing()   turns spans on for its block; xla_trace enters it.
+  kernel_op(name)
+              a hand kernel's launch as an operator of its own, as each
+              aten op is: under a running torch.profiler capture a
+              record of the profiler's operator scope, whatever tracing()
+              says, so the profiler puts the kernel down to it and its
+              device time to the ranges around it (a span or a caller's
+              record_function, of the user scope, gets none of a kernel
+              launched outside an operator); a shared no-op otherwise.
   counters    integers counted at the same boundaries, always on:
               "stmap.launches" and "stmap_layer.launches" (kernel
-              launches of ops/stmap.py's two C entry points) and
+              launches of ops/stmap.py's two C entry points),
+              "warp.launches" (kernel launches of ops/warp.py's) and
               "host_reads" (device-to-host transfers of
               ops/stmap.py::_host_values).
 """
@@ -55,6 +64,14 @@ def span(name):
     if not _tracing:
         return _OFF
     return torch.profiler.record_function("mmsolver." + name)
+
+
+def kernel_op(name):
+    """The launch of the hand kernel `name` as an operator record under a
+    running torch.profiler capture; a shared no-op otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager

@@ -5,7 +5,9 @@ camera solve, its Collection API, its command line (lensdistort,
 reproject), its tools (ray-mesh intersection, screen-space rig bake,
 reparent) and its frame-sharded solvers (with no process group and under
 a one-rank NCCL group) on the card, the ST-map wrapper's spans and
-counters there, and the no-fallback rule.
+counters there, the image warp's kernel (csrc/warp.cu) against the eager
+warp on the card and the float64 warp on the CPU at 1e-6, and the
+no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -266,6 +268,138 @@ def test_stmap_spans_and_counters_on_cuda():
     assert counters["stmap.launches"] == before["stmap.launches"] + 3
     assert counters["stmap_layer.launches"] == (
         before["stmap_layer.launches"] + 2)
+
+
+# name: (image (H, W, C), map (H', W', channels), how the kernel is handed
+# them, dtype).  "map_columns" reads every other column of a wider map,
+# "map_channels" a map whose UV sit in channels 1 and 2 (4 bytes off),
+# "image_rgb" the RGB of an RGBA image, at its strides.
+WARP_CASES = {
+    "rgba": ((45, 80, 4), (45, 80, 4), None, torch.float32),
+    "gray": ((45, 80, 1), (45, 80, 4), None, torch.float32),
+    "rgb": ((45, 80, 3), (45, 80, 4), None, torch.float32),
+    "other_size": ((45, 80, 4), (61, 123, 4), None, torch.float32),
+    "uv_only": ((45, 80, 4), (45, 80, 2), None, torch.float32),
+    "map_columns": ((45, 80, 4), (45, 160, 4), "map_columns", torch.float32),
+    "map_channels": ((45, 80, 3), (45, 80, 4), "map_channels",
+                     torch.float32),
+    "image_rgb": ((45, 80, 4), (45, 80, 4), "image_rgb", torch.float32),
+    "float64": ((45, 80, 4), (61, 123, 3), None, torch.float64),
+}
+
+
+def _warp_inputs(case):
+    """The case's image and map on the card: UVs that reach 1.5 px past
+    every edge of the image (where the clamped taps jump at every whole
+    pixel beyond the left and top edges) and one NaN UV."""
+    image_shape, map_shape, view, dtype = WARP_CASES[case]
+    rng = np.random.RandomState(sorted(WARP_CASES).index(case))
+    height, width = image_shape[:2]
+    image = rng.uniform(0.0, 1.0, image_shape)
+    st_map = rng.uniform(0.0, 1.0, map_shape)
+    st_map[..., 0] = rng.uniform(-1.5 / width, 1 + 1.5 / width,
+                                 map_shape[:2])
+    st_map[..., 1] = rng.uniform(-1.5 / height, 1 + 1.5 / height,
+                                 map_shape[:2])
+    image, st_map = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                     for a in (image, st_map))
+    if view == "map_columns":
+        st_map = st_map[:, ::2]
+    elif view == "map_channels":
+        st_map = torch.cat([st_map[..., 3:], st_map[..., :3]], -1)[..., 1:]
+    elif view == "image_rgb":
+        image = image[..., :3]
+    st_map[3, 5, :2] = float("nan")
+    return image, st_map
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_warp_kernel_matches_eager_and_float64(case):
+    """warp_image on the card is one launch of csrc/warp.cu: it equals the
+    eager _bilinear_sample on the same CUDA tensors, bit for bit (the
+    same sample positions, the same roundings), and the float64 warp on
+    the CPU within float32's rounding of the blend."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    image, st_map = _warp_inputs(case)
+    launches = counters["warp.launches"]
+    got = t_warp.warp_image(image, st_map)
+    assert counters["warp.launches"] == launches + 1
+    eager = t_warp._bilinear_sample(image, st_map[..., 0], st_map[..., 1])
+    wide = t_warp._bilinear_sample(image.cpu().double(),
+                                   st_map[..., 0].cpu(),
+                                   st_map[..., 1].cpu())
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == image.dtype and got.is_contiguous()
+    assert got.shape == st_map.shape[:2] + image.shape[2:]
+    assert bool(got[3, 5].isnan().all())
+    torch.testing.assert_close(got, eager, rtol=0, atol=1e-6,
+                               equal_nan=True)
+    assert torch.equal(got.isnan(), eager.isnan())
+    assert torch.equal(got.nan_to_num(), eager.nan_to_num())
+    torch.testing.assert_close(got.cpu().double(), wide, rtol=0, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_time_lies_under_the_callers_range():
+    """The launch is an operator of its own under a capture
+    (profiler.kernel_op), so the kernel's device time counts in the
+    caller's record_function around warp_image, as an eager op's would."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    image, st_map = _warp_inputs("rgba")
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        # A capture's first launch also lends its kernel to the
+        # profiler's own "Activity Buffer Request" event inside the op:
+        # one launch before the range.
+        t_warp.warp_image(image, st_map)
+        with record_function("caller"):
+            t_warp.warp_image(image, st_map)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    (caller,) = [e for e in host if e.name == "caller"]
+    ops = [e for e in host if e.name == "mmsolver_warp"]
+    kernels = [e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA
+               and "warp_kernel" in e.name]
+    assert len(ops) == len(kernels) == 2
+    assert ops[1].cpu_parent.id == caller.id and caller.device_time_total > 0
+    assert caller.device_time_total == pytest.approx(kernels[1])
+
+
+@pytest.mark.cuda
+def test_warp_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    image, st_map = _warp_inputs("rgba")
+    launches = counters["warp.launches"]
+    for bad_image, bad_map, message in (
+            (image.cpu(), st_map, "one CUDA device"),
+            (image, st_map.cpu(), "one CUDA device"),
+            (image.half(), st_map.half(), "float32 or float64"),
+            (image, st_map.double(), "same dtype"),
+            (image.double(), st_map, "same dtype"),
+            (image[..., 0], st_map, r"\(H, W, C\)"),
+            (image[:0], st_map, r"\(H, W, C\)"),
+            (image, st_map[..., :1], r"\(H', W', >=2\)"),
+            (image, st_map[..., 0], r"\(H', W', >=2\)"),
+            (image, st_map[:, :0], r"\(H', W', >=2\)")):
+        with pytest.raises(ValueError, match=message):
+            t_warp.warp_image(bad_image, bad_map)
+    assert counters["warp.launches"] == launches
 
 
 def _pose_shot(device, frames=6, bundles=8):

@@ -7,8 +7,9 @@ Pallas, and with the first layer through the Pallas kernel in TPU
 interpret mode, at the 2e-5 of the single-layer tests (the port's later
 layers run in float32 here, the film back's dtype; JAX's in float64).
 warp_image: float64 gathers and two lerps in the same order, so 1e-12,
-on in-range, edge and out-of-range UVs.  deform_points: 1e-12, with a
-non-finite input and an envelope.
+on in-range, edge and out-of-range UVs; on the CPU it is the eager warp
+bit for bit and never reaches the CUDA kernel (csrc/warp.cu).
+deform_points: 1e-12, with a non-finite input and an envelope.
 """
 
 import jax.numpy as jnp
@@ -231,6 +232,69 @@ def test_warp_through_the_identity_map():
     np.testing.assert_allclose(
         to_numpy(t_warp.warp_image(image, v_up))[1:, 1:],
         to_numpy(image)[1:, 1:], atol=1e-6)
+
+
+def _eager_warp(image, u, v):
+    """ops/warp.py::_bilinear_sample as it stands, written out again: the
+    CPU's warp_image has to give exactly this."""
+    h, w = image.shape[:2]
+    x, y = u * w - 0.5, (1.0 - v) * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    xa = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    xb = torch.clamp(xa + 1, 0, w - 1)
+    ya = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    yb = torch.clamp(ya + 1, 0, h - 1)
+    top = image[ya, xa] * (1.0 - fx) + image[ya, xb] * fx
+    bottom = image[yb, xa] * (1.0 - fx) + image[yb, xb] * fx
+    return top * (1.0 - fy) + bottom * fy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_warp_image_on_cpu_is_the_eager_warp(channels, dtype):
+    """On the CPU warp_image is the eager warp, bit for bit: for a map of
+    another size, with 2 or 4 channels, contiguous or a slice, and UVs
+    1.5 px past every edge."""
+    rng = np.random.RandomState(channels)
+    image = torch.as_tensor(rng.uniform(0.0, 1.0, (7, 9, channels)),
+                            dtype=dtype)
+    uv = np.stack([rng.uniform(-1.5 / 9, 1 + 1.5 / 9, (5, 12)),
+                   rng.uniform(-1.5 / 7, 1 + 1.5 / 7, (5, 12))], -1)
+    uv[2, 3] = np.nan
+    two = torch.as_tensor(uv, dtype=dtype)
+    four = torch.cat([two, torch.zeros_like(two[..., :1]),
+                      torch.ones_like(two[..., :1])], -1)
+    for st_map in (two, four, four[:, ::2], two.transpose(0, 1)):
+        got = t_warp.warp_image(image, st_map)
+        want = _eager_warp(image, st_map[..., 0], st_map[..., 1])
+        assert got.dtype == dtype
+        assert got.shape == st_map.shape[:2] + (channels,)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_warp_image_on_cpu_builds_no_kernel(monkeypatch):
+    """The CPU's warp neither builds nor loads csrc/warp.cu, and counts
+    no launch."""
+    from mayamatchmovesolver_torch import _kernels
+
+    def refuse(*args):
+        raise AssertionError("the CPU warp reached the CUDA kernels")
+
+    monkeypatch.setattr(_kernels, "build", refuse)
+    monkeypatch.setattr(_kernels, "load", refuse)
+    monkeypatch.setattr(_kernels, "warp_function", refuse)
+    launches = counters["warp.launches"]
+    image, uv = _image_and_uv(3)
+    for dtype in (torch.float32, torch.float64):
+        got = t_warp.warp_image(torch.as_tensor(image, dtype=dtype),
+                                torch.as_tensor(uv, dtype=dtype))
+        assert got.shape == (5, 6, 3) and got.dtype == dtype
+    (model, _), fb = _models("torch", STACKS["two"], scale=1.0)
+    t_warp.warp_image_with_lens(torch.as_tensor(image, dtype=torch.float32),
+                                model, fb, "undistort")
+    assert counters["warp.launches"] == launches
 
 
 @pytest.mark.parametrize("direction", ["distort", "undistort"])

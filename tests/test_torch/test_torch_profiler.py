@@ -107,6 +107,20 @@ def test_xla_trace_holds_the_programs_spans(tmp_path):
     assert any(e.get("name") == "mmsolver.warp.call" for e in events)
 
 
+def test_kernel_op_is_an_operator_under_a_capture_only():
+    """Off a capture kernel_op is the shared no-op; under one, whatever
+    tracing() says, it is an operator record (not a user range) nested
+    in the ranges around it, as an aten op is."""
+    assert t_profiler.kernel_op("mmsolver_warp") is t_profiler.span("x")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("caller"):
+            with t_profiler.kernel_op("mmsolver_warp"):
+                pass
+    (op,) = [e for e in prof.events() if e.name == "mmsolver_warp"]
+    assert op.cpu_parent.name == "caller" and not op.is_user_annotation
+    assert t_profiler.kernel_op("mmsolver_warp") is t_profiler.span("x")
+
+
 def test_tracing_restores_the_state_before():
     with t_profiler.tracing():
         with pytest.raises(ValueError):
