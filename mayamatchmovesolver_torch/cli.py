@@ -17,6 +17,8 @@ take no device.
     python -m mayamatchmovesolver_torch.cli camera-solve --markers t.uv ...
     python -m mayamatchmovesolver_torch.cli lensdistort --model tde_classic
         --distortion 0.1 --width 1920 --height 1080 --output st.exr
+    python -m mayamatchmovesolver_torch.cli lensdistort --lens-file lens.nk
+        --frame 12 --width 4448 --height 3096 --output st.exr
     python -m mayamatchmovesolver_torch.cli formats
 """
 
@@ -281,6 +283,24 @@ def _classic_lens(args, device):
     )
 
 
+def _lens_file_stack(args):
+    """(models, film back) of the --lens-file's stack at --frame, Python
+    floats (io/lensfile.py::LensLayers.models_at): any of the four 3DE
+    models, any number of layers."""
+    from mayamatchmovesolver_torch.io import lensfile
+
+    layers = lensfile.parse(args.lens_file)
+    return layers.models_at(args.frame), layers.film_back()
+
+
+def _add_lens_file_args(p):
+    p.add_argument("--lens-file", default=None,
+                   help="Nuke script of 3DE lens nodes (a lens stack); "
+                        "its film back replaces --film-back-*")
+    p.add_argument("--frame", type=int, default=1,
+                   help="the lens file's frame (default 1)")
+
+
 def _cmd_lensdistort(args):
     import torch
 
@@ -290,15 +310,17 @@ def _cmd_lensdistort(args):
     from mayamatchmovesolver_torch.ops import stmap as stmap_mod
 
     device = _device(args)
-    fb = _film_back(args, device)
-    if args.model == scenelens.LENS_MODEL_CLASSIC:
-        model = _classic_lens(args, device)
+    if args.lens_file:
+        model, fb = _lens_file_stack(args)
+    elif args.model == scenelens.LENS_MODEL_CLASSIC:
+        model, fb = _classic_lens(args, device), _film_back(args, device)
     elif args.model == scenelens.LENS_MODEL_RADIAL_DEG4:
         model = models.TdeRadialStdDeg4.create(
             degree2_distortion=args.distortion,
             degree4_distortion=args.quartic_distortion,
             device=device, dtype=torch.float32,
         )
+        fb = _film_back(args, device)
     else:
         raise SystemExit("unsupported model for CLI: %r" % args.model)
 
@@ -801,6 +823,9 @@ def _cmd_image_warp(args):
     if args.stmap:
         st, _ = image_mod.read_image(args.stmap)
         out = warp_mod.warp_image(img, torch.as_tensor(st, device=device))
+    elif args.lens_file:
+        out = warp_mod.warp_image_with_lens(img, *_lens_file_stack(args),
+                                            direction=args.direction)
     else:
         out = warp_mod.warp_image_with_lens(
             img, _classic_lens(args, device), _film_back(args, device),
@@ -901,6 +926,7 @@ def main(argv=None):
     p.add_argument("--film-back-width", type=float, default=36.0)
     p.add_argument("--film-back-height", type=float, default=24.0)
     p.add_argument("--output", required=True)
+    _add_lens_file_args(p)
     add_device_arg(p)
 
     p = sub.add_parser(
@@ -1017,6 +1043,7 @@ def main(argv=None):
     p.add_argument("--quartic-distortion", type=float, default=0.0)
     p.add_argument("--film-back-width", type=float, default=36.0)
     p.add_argument("--film-back-height", type=float, default=24.0)
+    _add_lens_file_args(p)
     add_device_arg(p)
 
     args = parser.parse_args(argv)

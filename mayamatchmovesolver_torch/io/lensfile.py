@@ -7,10 +7,23 @@ parser supporting LD_3DE* nodes with static or animated
 DistortionLayers; also the loadlens tool capability, ref:
 python/mmSolver/tools/loadlens).  Parsing and writing are host code;
 the models and film back a LensLayers hands out are tensors on the
-device the caller names.
+device the caller names, or, with no device, Python floats.
 
 Output: LensLayers — per-layer model type + per-frame parameter dicts +
 shared camera (film back) parameters.
+
+A lens file's export path to ST maps is
+
+    layers = parse(path)
+    st_map = ops.stmap.stmap(layers.models_at(frame), layers.film_back(),
+                             width, height, direction, device=device)
+
+whose models and film back are Python floats: the ST-map wrapper packs
+them with no device-to-host read, and a stack of N 3DE layers is N
+kernel launches on a CUDA device.  models_at is the span
+"lensfile.models_at" (utils/profiler.py) and counts its calls in
+profiler.counters["lensfile.models_at"] and the models it returns in
+profiler.counters["lensfile.layers"].
 """
 
 import dataclasses
@@ -18,6 +31,8 @@ from typing import Dict, List, Tuple
 
 from mayamatchmovesolver_torch.models import scenelens, tde
 from mayamatchmovesolver_torch.models.base import FilmBack
+from mayamatchmovesolver_torch.utils import profiler
+from mayamatchmovesolver_torch.utils.profiler import span
 
 # Nuke node class name -> our model type
 # (ref: lib/cppbind/mmlens/src/constants.rs:68-90).
@@ -81,6 +96,16 @@ _CAMERA_KNOBS = {
 }
 
 
+# FilmBack's fields, in order, as camera knobs.
+_FILM_BACK_KNOBS = (
+    "tde4_filmback_width_cm",
+    "tde4_filmback_height_cm",
+    "tde4_lens_center_offset_x_cm",
+    "tde4_lens_center_offset_y_cm",
+    "tde4_pixel_aspect",
+)
+
+
 @dataclasses.dataclass
 class LensLayer:
     model_type: str
@@ -89,6 +114,12 @@ class LensLayer:
     frame_range: Tuple[int, int] = (1, 1)
 
     def value_at(self, field, frame, default=0.0):
+        """The knob's value at `frame`: a static knob's value, or an
+        animated knob's key at that exact frame, never interpolated.  A
+        frame with no key of its own takes the first key's value where it
+        lies before the first key, and the last key's otherwise (before
+        the curve, past it, or in a gap between keys).  `default` where
+        the file has no such knob."""
         curve = self.parameters.get(field)
         if not curve:
             return default
@@ -104,12 +135,16 @@ class LensLayer:
         return curve[frames[-1]]
 
     def model_at(self, frame, *, device, dtype=None):
-        """The layer's model at `frame`, scalar tensors on `device`."""
+        """The layer's model at `frame` (value_at): scalar tensors on
+        `device`, or Python floats where `device` is None."""
         cls = scenelens._MODEL_CLASSES[self.model_type]
-        return cls.create(device=device, dtype=dtype, **{
-            field: self.value_at(field, frame, float(default))
+        values = {
+            field: float(self.value_at(field, frame, default))
             for field, default in scenelens._MODEL_FIELDS[self.model_type]
-        })
+        }
+        if device is None:
+            return cls(**values)
+        return cls.create(device=device, dtype=dtype, **values)
 
 
 @dataclasses.dataclass
@@ -129,15 +164,24 @@ class LensLayers:
         hi = max(layer.frame_range[1] for layer in self.layers)
         return lo, hi
 
-    def film_back(self, *, device, dtype=None):
-        return FilmBack.create(
-            width_cm=self.camera["tde4_filmback_width_cm"],
-            height_cm=self.camera["tde4_filmback_height_cm"],
-            offset_x_cm=self.camera["tde4_lens_center_offset_x_cm"],
-            offset_y_cm=self.camera["tde4_lens_center_offset_y_cm"],
-            pixel_aspect=self.camera["tde4_pixel_aspect"],
-            device=device, dtype=dtype,
-        )
+    def models_at(self, frame):
+        """Every layer's model at `frame` (LensLayer.value_at), in stack
+        order, with Python float fields: what ops/stmap.py::stmap takes,
+        with film_back(), for the whole stack."""
+        with span("lensfile.models_at"):
+            models = [layer.model_at(frame, device=None)
+                      for layer in self.layers]
+        profiler.counters["lensfile.models_at"] += 1
+        profiler.counters["lensfile.layers"] += len(models)
+        return models
+
+    def film_back(self, *, device=None, dtype=None):
+        """The camera's film back: scalar tensors on `device`, or Python
+        floats where `device` is None."""
+        values = [float(self.camera[k]) for k in _FILM_BACK_KNOBS]
+        if device is None:
+            return FilmBack(*values)
+        return FilmBack.create(*values, device=device, dtype=dtype)
 
     def distort(self, frame, xy_marker):
         """Apply all layers in order, on the points' device and in their
@@ -247,9 +291,17 @@ def parse(file_path) -> LensLayers:
         return parse_string(f.read())
 
 
+def _number(value):
+    """A knob value as text that parses back to the same float: %g where
+    that holds, else the shortest repr that does."""
+    text = "%g" % value
+    return text if float(text) == value else repr(float(value))
+
+
 def write_string(layers: LensLayers) -> str:
     """Write the Nuke-script lens format back out (savelensfile
-    capability; ref: python/mmSolver/tools/savelensfile)."""
+    capability; ref: python/mmSolver/tools/savelensfile).  Every value
+    reads back as the same float."""
     reverse_types = {v: k for k, v in NODE_TYPE_MAP.items()}
     lines = []
     for layer in layers.layers:
@@ -259,15 +311,17 @@ def write_string(layers: LensLayers) -> str:
         }
         for cam_knob, default in _CAMERA_KNOBS.items():
             lines.append(
-                " %s %g" % (cam_knob, layers.camera.get(cam_knob, default))
+                " %s %s" % (cam_knob,
+                            _number(layers.camera.get(cam_knob, default)))
             )
         for field, curve in layer.parameters.items():
             knob = field_to_knob.get(field, field)
             if None in curve:
-                lines.append(" %s %g" % (knob, curve[None]))
+                lines.append(" %s %s" % (knob, _number(curve[None])))
             else:
                 parts = " ".join(
-                    "x%d %g" % (f, v) for f, v in sorted(curve.items())
+                    "x%d %s" % (f, _number(v))
+                    for f, v in sorted(curve.items())
                 )
                 lines.append(" %s {{curve %s }}" % (knob, parts))
         lines.append("}")

@@ -47,6 +47,20 @@ class FilmBack:
         )
 
 
+def as_tensors(obj, *, device, dtype):
+    """A model or film back with every field that is a Python number
+    made a scalar tensor of `dtype` on `device` (io/lensfile.py's
+    models_at and film_back hand out such fields); tensor fields stay as
+    they are."""
+    numbers = {
+        f.name: torch.as_tensor(getattr(obj, f.name), dtype=dtype,
+                                device=device)
+        for f in dataclasses.fields(obj)
+        if not isinstance(getattr(obj, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(obj, **numbers) if numbers else obj
+
+
 def film_back_radius_cm(fb: FilmBack):
     """Half film-back diagonal (ref: lib.h:36-43)."""
     return torch.sqrt(

@@ -25,9 +25,11 @@ There is no fallback: on CUDA a 3DE layer launches its kernel or raises.
 
 The host half of the kernels (everything from _host_values down to
 _kernel_params) runs in Python floats, which are float64, after one
-device-to-host transfer a call: it folds the direction, the film back
-and the image size into two affine maps around the polynomial core and
-hands the kernel one float32 array.
+device-to-host transfer a call, or none where the models and film back
+hold Python floats already (io/lensfile.py's models_at and film_back):
+it folds the direction, the film back and the image size into two
+affine maps around the polynomial core and hands the kernel one float32
+array.
 
 A CUDA call is the span "stmap.call" (utils/profiler.py), and inside it
 "stmap.host_read" (the transfer, counted in
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from mayamatchmovesolver_torch import _kernels
-from mayamatchmovesolver_torch.models import tde
+from mayamatchmovesolver_torch.models import base, tde
 from mayamatchmovesolver_torch.utils import profiler
 from mayamatchmovesolver_torch.utils.profiler import span
 
@@ -61,9 +63,12 @@ def stmap_torch(model, film_back, width, height, direction="distort", *,
 
     Pixel centers sample at (x+0.5)/w, (y+0.5)/h in unit space, like the
     reference's image loops.  The grid is built in `dtype` on `device`;
-    the model's and film back's tensors must lie on `device` too.
+    the model's and film back's tensors must lie on `device` too, and
+    their Python float fields become tensors of `dtype` there.
     Returns (H, W, 4) float32.
     """
+    model = base.as_tensors(model, device=device, dtype=dtype)
+    film_back = base.as_tensors(film_back, device=device, dtype=dtype)
     ys = (torch.arange(height, dtype=dtype, device=device) + 0.5) / height
     xs = (torch.arange(width, dtype=dtype, device=device) + 0.5) / width
     grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
@@ -87,9 +92,12 @@ def stmap_torch(model, film_back, width, height, direction="distort", *,
 def stmap_layer_torch(st_map, model, film_back, direction="distort"):
     """One further lens layer applied point-wise to the (H, W, 4) map of
     the layers before it, in plain PyTorch on the map's device and in the
-    film back's dtype: S and T are mapped, channels 2 and 3 carry
-    through.  Returns a new float32 map."""
+    film back's dtype (torch's default float type for Python floats): S
+    and T are mapped, channels 2 and 3 carry through.  Returns a new
+    float32 map."""
     work = torch.as_tensor(film_back.film_back_width_cm).dtype
+    model = base.as_tensors(model, device=st_map.device, dtype=work)
+    film_back = base.as_tensors(film_back, device=st_map.device, dtype=work)
     pts_marker = st_map[..., :2].to(work) - 0.5
     if direction == "distort":
         mapped = tde.distort(model, film_back, pts_marker)

@@ -4,7 +4,8 @@ stacks, its checkpoints, its robust relative pose, its from-scratch
 camera solve, its Collection API, its command line (lensdistort,
 reproject), its tools (ray-mesh intersection, screen-space rig bake,
 reparent) and its frame-sharded solvers (with no process group and under
-a one-rank NCCL group) on the card, the ST-map wrapper's spans and
+a one-rank NCCL group) on the card, a lens file's anamorphic map at
+ALEXA LF open-gate size, the ST-map wrapper's spans and
 counters there, the image warp's kernel (csrc/warp.cu) against the eager
 warp on the card and the float64 warp on the CPU at 1e-6, and the
 no-fallback rule.
@@ -191,6 +192,57 @@ def test_stmap_layer_cuda_kernel_matches_plain_version(name, direction):
             got.cpu().numpy(), want.cpu().numpy(), atol=ATOL,
             err_msg="%s/%s %dx%d" % (name, direction, width, height))
         assert torch.equal(got[..., 2:], source[..., 2:])
+
+
+# A breathing 1.8x anamorphic's lens file on ALEXA LF open-gate plates
+# (4448 x 3096 photosites on 36.70 x 25.54 mm), its last frame.
+LF_ANAMORPHIC = """LD_3DE4_Anamorphic_Rescaled_Degree_4 {
+ tde4_filmback_width_cm 3.67
+ tde4_filmback_height_cm 2.554
+ tde4_pixel_aspect 1.8
+ Cx02_Degree_2 {{curve x1 -0.03 x2 -0.045 }}
+ Cy02_Degree_2 {{curve x1 0.06 x2 0.08 }}
+ Cx22_Degree_2 0.01
+ Cy22_Degree_2 -0.015
+ Cx04_Degree_4 0.004
+ Cy04_Degree_4 0.008
+ Cx24_Degree_4 -0.002
+ Cy24_Degree_4 0.003
+ Cx44_Degree_4 0.001
+ Cy44_Degree_4 -0.001
+ Lens_Rotation 0.15
+ Squeeze_X 1
+ Squeeze_Y 0.997
+ Rescale 0.995
+}
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_stmap_cuda_anamorphic_core_at_alexa_lf_open_gate(direction):
+    """The kernel's anamorphic core at 4448 x 3096 with pixel aspect 1.8,
+    the rotation and the rescale, from a lens file's models_at (Python
+    floats: one launch, no host read), against the plain version of the
+    same lens on the card in float32 and in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.io import lensfile
+
+    layers = lensfile.parse_string(LF_ANAMORPHIC)
+    models, fb = layers.models_at(2), layers.film_back()
+    reads, launches = counters["host_reads"], counters["stmap.launches"]
+    got = t_stmap.stmap(models, fb, 4448, 3096, direction, device="cuda")
+    assert counters["host_reads"] == reads
+    assert counters["stmap.launches"] == launches + 1
+    assert got.shape == (3096, 4448, 4)
+    for dtype in (torch.float32, torch.float64):
+        want = t_stmap.stmap_torch(models[0], fb, 4448, 3096, direction,
+                                   device="cuda", dtype=dtype)
+        assert float((got - want).abs().max()) < ATOL, dtype
+    identity = t_stmap.stmap_torch(models[0].__class__(), fb, 4448, 3096,
+                                   direction, device="cuda")
+    assert float((got - identity).abs().max()) > 1e-3
 
 
 @pytest.mark.cuda
