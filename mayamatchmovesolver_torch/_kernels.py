@@ -119,6 +119,32 @@ def stmap_functions():
 
 
 @functools.lru_cache(maxsize=None)
+def stmap_packed_functions():
+    """(mmsolver_stmap_packed, mmsolver_stmap_layer_packed) from
+    csrc/stmap.cu, with their C signatures set.  Both take the map's
+    device pointer, width, height, distort flag, the number of layers,
+    their model kinds and their fields' records (host memory), the device
+    buffer the pack kernel writes the parameters to and the stream, and
+    return the launches' CUDA error code."""
+    lib = load("stmap")
+    functions = (lib.mmsolver_stmap_packed, lib.mmsolver_stmap_layer_packed)
+    for fn in functions:
+        fn.argtypes = [
+            ctypes.c_void_p,  # map (device, float4 per pixel)
+            ctypes.c_int,  # width
+            ctypes.c_int,  # height
+            ctypes.c_int,  # distort
+            ctypes.c_int,  # layers
+            ctypes.c_void_p,  # model kinds (host ints)
+            ctypes.c_void_p,  # field records (host)
+            ctypes.c_void_p,  # parameters (device floats)
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+    return functions
+
+
+@functools.lru_cache(maxsize=None)
 def warp_function():
     """mmsolver_warp from csrc/warp.cu, with its C signature set: the
     image's device pointer, height, width, channels and strides, the

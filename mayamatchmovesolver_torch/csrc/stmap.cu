@@ -13,6 +13,22 @@
 //                         leaves a lens stack's further layers to XLA;
 //                         here they stay out of eager PyTorch.
 //
+// Each takes the lens's parameters in one of two ways:
+//
+//   by value              the host has folded them into PARAM_COUNT
+//                         floats (ops/stmap.py::_pack_params), which
+//                         travel in the kernel's argument;
+//   packed on the device  mmsolver_stmap_packed and
+//                         mmsolver_stmap_layer_packed take the lens's
+//                         fields as device addresses (a lens held in
+//                         tensors on the card) or host doubles; one
+//                         launch of pack_params_kernel folds them in
+//                         float64, as the host would, into a device
+//                         buffer, and each map launch that follows reads
+//                         its layer's floats from there.  Nothing is
+//                         read back to the host, so the host never waits
+//                         for the card before a map.
+//
 // Every model's undistort is  post @ core(pre @ xy)  in diagonally
 // normalised (dn) coordinates, with a polynomial `core` and constant 2x2
 // matrices; distort inverts it as  inv(pre) @ core^-1(inv(post) @ xy),
@@ -46,11 +62,13 @@
 //     (-DMMSOLVER_DISTORT_ITERATIONS, from models/base.py), so the loop
 //     unrolls: no counter, compare or branch.
 //   * Coefficients arrive in the kernel's argument, so every FMA takes its
-//     coefficient straight from the constant bank.
+//     coefficient straight from the constant bank; packed on the device,
+//     each thread loads them once into registers instead, and a distort
+//     thread maps four pixels (distort_texels).
 //   * One thread a pixel, 32x8 blocks with threadIdx.x along the width: a
 //     warp's loads and stores are 512 contiguous bytes as one float4 a
-//     thread; the ragged edge is masked here.  A thread keeps to one
-//     pixel: at about 20 registers an SM holds 64 warps, which cover the
+//     thread; the ragged edge is masked here.  By value a thread keeps to
+//     one pixel: at about 20 registers an SM holds 64 warps, which cover the
 //     dependent FMA chain, and the SASS opcode count times the
 //     pixels accounts for the time measured (PERF.md), so the lanes'
 //     rate, not latency or the last wave, is what is left.
@@ -58,6 +76,8 @@
 // version.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #ifndef MMSOLVER_DISTORT_ITERATIONS
 #error "build with -DMMSOLVER_DISTORT_ITERATIONS=<DISTORT_INVERSE_ITERATIONS of models/base.py>"
@@ -71,6 +91,8 @@ constexpr int BLOCK_W = 32;
 constexpr int BLOCK_H = 8;
 constexpr int MAX_COEFFS = 10;
 constexpr int PARAM_COUNT = MAX_COEFFS + 12;
+// Pixels a thread of a packed distort kernel maps (distort_texels).
+constexpr int PACKED_DISTORT_PIXELS = 4;
 
 struct StmapParams {
   float c[MAX_COEFFS];  // core coefficients, model-specific order
@@ -124,10 +146,28 @@ __device__ __forceinline__ void displace(const StmapParams& p, float x,
   }
 }
 
+// The affine frame around the core, two FMAs a component: the source
+// point to the core's input, and the core's output to the unit texel.
+__device__ __forceinline__ void frame_in(const StmapParams& p, float u,
+                                         float v, float* tx, float* ty) {
+  *tx = fmaf(p.a_in[0], u, fmaf(p.a_in[1], v, p.b_in[0]));
+  *ty = fmaf(p.a_in[2], u, fmaf(p.a_in[3], v, p.b_in[1]));
+}
+
+__device__ __forceinline__ float4 frame_out(const StmapParams& p, float qx,
+                                            float qy, float blue,
+                                            float alpha) {
+  const float s = fmaf(p.a_out[0], qx, fmaf(p.a_out[1], qy, p.b_out[0]));
+  const float t = fmaf(p.a_out[2], qx, fmaf(p.a_out[3], qy, p.b_out[1]));
+  return make_float4(s, t, blue, alpha);
+}
+
+// The texel of one thread: its source point, into the core, the core
+// (distort: its fixed point), out to the unit texel.
 template <int CORE, bool DISTORT, bool FROM_MAP>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
-    stmap_kernel(float4* __restrict__ map, int width, int height,
-                 const StmapParams p) {
+__device__ __forceinline__ void map_texel(float4* __restrict__ map,
+                                          int width, int height,
+                                          const StmapParams& p) {
   const int col = blockIdx.x * BLOCK_W + threadIdx.x;
   const int row = blockIdx.y * BLOCK_H + threadIdx.y;
   if (col >= width || row >= height) return;
@@ -144,8 +184,8 @@ __global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
     u = (float)col;
     v = (float)row;
   }
-  const float tx = fmaf(p.a_in[0], u, fmaf(p.a_in[1], v, p.b_in[0]));
-  const float ty = fmaf(p.a_in[2], u, fmaf(p.a_in[3], v, p.b_in[1]));
+  float tx, ty;
+  frame_in(p, u, v, &tx, &ty);
 
   float qx = tx, qy = ty;
   if (DISTORT) {
@@ -160,23 +200,310 @@ __global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
   } else {
     displace<CORE, false>(p, tx, ty, tx, ty, &qx, &qy);
   }
-  const float s = fmaf(p.a_out[0], qx, fmaf(p.a_out[1], qy, p.b_out[0]));
-  const float t = fmaf(p.a_out[2], qx, fmaf(p.a_out[3], qy, p.b_out[1]));
-  *texel = make_float4(s, t, blue, alpha);
+  *texel = frame_out(p, qx, qy, blue, alpha);
 }
 
-template <int CORE, bool FROM_MAP>
+// Distort's texels for a thread that holds the parameters in registers:
+// PIXELS pixels, BLOCK_W columns apart in a tile PIXELS * BLOCK_W wide,
+// their fixed points stepped side by side.  Every FMA of the core reads
+// three registers then, not two and the constant bank: at one pixel a
+// thread the distort kernels, bound by their issue rate, ran 9-17%
+// slower than by value; at four they run within 2% of it, at 31-48
+// registers (PERF.md).  A column past the ragged edge repeats the last
+// one and is not written.
+template <int CORE, bool FROM_MAP, int PIXELS>
+__device__ __forceinline__ void distort_texels(float4* __restrict__ map,
+                                               int width, int height,
+                                               const StmapParams& p) {
+  const int col = blockIdx.x * (PIXELS * BLOCK_W) + threadIdx.x;
+  const int row = blockIdx.y * BLOCK_H + threadIdx.y;
+  if (col >= width || row >= height) return;
+
+  float4* texel[PIXELS];
+  float tx[PIXELS], ty[PIXELS], blue[PIXELS], alpha[PIXELS];
+#pragma unroll
+  for (int k = 0; k < PIXELS; ++k) {
+    const int c = k == 0 ? col : min(col + k * BLOCK_W, width - 1);
+    texel[k] = map + ((size_t)row * width + c);
+    float u, v;
+    blue[k] = 0.0f;
+    alpha[k] = 1.0f;
+    if (FROM_MAP) {
+      const float4 m = *texel[k];
+      u = m.x;
+      v = m.y;
+      blue[k] = m.z;
+      alpha[k] = m.w;
+    } else {
+      u = (float)c;
+      v = (float)row;
+    }
+    frame_in(p, u, v, &tx[k], &ty[k]);
+  }
+  float qx[PIXELS], qy[PIXELS];
+#pragma unroll
+  for (int k = 0; k < PIXELS; ++k) {
+    qx[k] = tx[k];
+    qy[k] = ty[k];
+  }
+#pragma unroll
+  for (int i = 0; i <= MMSOLVER_DISTORT_ITERATIONS; ++i) {
+#pragma unroll
+    for (int k = 0; k < PIXELS; ++k) {
+      float nx, ny;
+      displace<CORE, true>(p, qx[k], qy[k], tx[k], ty[k], &nx, &ny);
+      qx[k] = nx;
+      qy[k] = ny;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PIXELS; ++k) {
+    if (k == 0 || col + k * BLOCK_W < width) {
+      *texel[k] = frame_out(p, qx[k], qy[k], blue[k], alpha[k]);
+    }
+  }
+}
+
+// Pixels a thread maps: PACKED_DISTORT_PIXELS in the distort kernels
+// that read their parameters from device memory, one elsewhere.
+template <bool DISTORT, typename Params>
+struct PixelsPerThread {
+  static constexpr int value =
+      (DISTORT && !std::is_same<Params, StmapParams>::value)
+          ? PACKED_DISTORT_PIXELS
+          : 1;
+};
+
+// The parameters in the kernel's argument: every FMA takes its
+// coefficient from the constant bank.
+template <int CORE, bool DISTORT, bool FROM_MAP>
+__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+    stmap_kernel(float4* __restrict__ map, int width, int height,
+                 const StmapParams p) {
+  map_texel<CORE, DISTORT, FROM_MAP>(map, width, height, p);
+}
+
+// The parameters in device memory, where pack_params_kernel wrote them:
+// each thread loads the same 88 bytes once, as 8-byte loads through the
+// read-only path (the first warps bring them into L1), into registers.
+template <int CORE, bool DISTORT, bool FROM_MAP>
+__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+    stmap_kernel(float4* __restrict__ map, int width, int height,
+                 const StmapParams* __restrict__ params) {
+  StmapParams p;
+  const float2* from = reinterpret_cast<const float2*>(params);
+  float* to = reinterpret_cast<float*>(&p);
+#pragma unroll
+  for (int i = 0; i < PARAM_COUNT / 2; ++i) {
+    const float2 pair = __ldg(from + i);
+    to[2 * i] = pair.x;
+    to[2 * i + 1] = pair.y;
+  }
+  if (DISTORT) {
+    distort_texels<CORE, FROM_MAP, PACKED_DISTORT_PIXELS>(map, width, height,
+                                                          p);
+  } else {
+    map_texel<CORE, DISTORT, FROM_MAP>(map, width, height, p);
+  }
+}
+
+// ---------------------------------------------------------------------
+// The lens parameters packed on the device.  Where a lens is given as
+// tensors on the card (a solved lens, or models made there), the host
+// does not read them back: pack_params_kernel does in float64 what
+// ops/stmap.py::_model_kernel_config and _pack_params do on the host, one
+// thread a layer, and writes each layer's PARAM_COUNT floats, rounded
+// once to float32, in StmapParams order; the map kernel's second overload
+// reads them.  Its inputs are the fields themselves, each a device
+// address of a one-element float or double tensor, or a host double.
+
+enum Model {
+  TDE_CLASSIC = 0,
+  TDE_RADIAL_DEG4 = 1,
+  TDE_ANAMORPHIC_DEG4 = 2,
+  TDE_ANAMORPHIC_DEG4_RESCALED = 3,
+};
+
+constexpr int FILM_BACK_FIELDS = 5;  // width, height, offset x, y (cm),
+                                     // pixel aspect
+constexpr int MODEL_FIELDS = 14;     // the most a model has (rescaled)
+constexpr int PACK_LAYERS = 8;       // layers a pack launch takes
+
+// One field of a model or film back, in its dataclass's field order.
+struct Field {
+  double value;         // the host value, where `address` is null
+  const void* address;  // else the device address of its one element
+  int is_double;        // which is a double (else a float)
+  int unused;
+};
+static_assert(sizeof(Field) == 24, "Field is ops/stmap.py's _FIELD");
+
+constexpr int PACK_FIELDS = FILM_BACK_FIELDS + PACK_LAYERS * MODEL_FIELDS;
+// Every field is read at once, one a thread.
+constexpr int PACK_THREADS = (PACK_FIELDS + 31) / 32 * 32;
+
+// The pack kernel's argument.
+struct PackArgs {
+  Field field[PACK_FIELDS];  // the film back's, then MODEL_FIELDS a layer
+  int kind[PACK_LAYERS];     // Model
+  int layers;
+  // The first layer's source point is the pixel index of a width x
+  // height image where width > 0, else (S, T) like every further layer.
+  int width, height;
+  int distort;
+};
+
+__device__ __forceinline__ double field_value(const Field& f) {
+  if (f.address == nullptr) return f.value;
+  return f.is_double ? *static_cast<const double*>(f.address)
+                     : (double)*static_cast<const float*>(f.address);
+}
+
+// Row-major 2x2 matrices in float64, as the host's tuples.
+struct Mat2 {
+  double m00, m01, m10, m11;
+};
+
+__device__ __forceinline__ Mat2 matmul2(const Mat2& a, const Mat2& b) {
+  return {a.m00 * b.m00 + a.m01 * b.m10, a.m00 * b.m01 + a.m01 * b.m11,
+          a.m10 * b.m00 + a.m11 * b.m10, a.m10 * b.m01 + a.m11 * b.m11};
+}
+
+__device__ __forceinline__ Mat2 inverse2(const Mat2& m) {
+  const double det = m.m00 * m.m11 - m.m01 * m.m10;
+  return {m.m11 / det, -m.m01 / det, -m.m10 / det, m.m00 / det};
+}
+
+// Every field is read at once, one a thread, into shared memory; then
+// one thread a layer folds them.
+__global__ void __launch_bounds__(PACK_THREADS)
+    pack_params_kernel(const PackArgs args, StmapParams* __restrict__ out) {
+  __shared__ double values[PACK_FIELDS];
+  const int fields = FILM_BACK_FIELDS + args.layers * MODEL_FIELDS;
+  for (int i = threadIdx.x; i < fields; i += blockDim.x) {
+    values[i] = field_value(args.field[i]);
+  }
+  __syncthreads();
+  const int layer = threadIdx.x;
+  if (layer >= args.layers) return;
+  const double* fb = values;
+  const double* v = values + FILM_BACK_FIELDS + layer * MODEL_FIELDS;
+  const double deg2rad = 3.14159265358979323846 / 180.0;
+
+  // _model_kernel_config: the core's coefficients and the matrices
+  // around it, undistort(xy) = post @ core(pre @ xy).
+  double c[MAX_COEFFS] = {};
+  const Mat2 identity = {1.0, 0.0, 0.0, 1.0};
+  Mat2 pre = identity, post = identity;
+  const int kind = args.kind[layer];
+  if (kind == TDE_CLASSIC) {
+    // distortion, anamorphic squeeze, curvature x, y, quartic.
+    const double ld = v[0], sq = v[1], qu = v[4];
+    c[0] = ld / sq;
+    c[1] = (ld + v[2]) / sq;
+    c[2] = ld + v[3];
+    c[3] = ld;
+    c[4] = qu / sq;
+    c[5] = qu;
+  } else if (kind == TDE_RADIAL_DEG4) {
+    // degree 2 distortion, u, v; degree 4 distortion, u, v; cylindric
+    // direction (degrees) and bending.
+    for (int i = 0; i < 6; ++i) c[i] = v[i];
+    const double q = sqrt(1.0 + v[7]);
+    const double cs = cos(v[6] * deg2rad), sn = sin(v[6] * deg2rad);
+    const double m01 = (q - 1.0 / q) * cs * sn;
+    post = {cs * cs * q + sn * sn / q, m01, m01, cs * cs / q + sn * sn * q};
+  } else {
+    // cx02, cy02, cx22, cy22, cx04, cy04, cx24, cy24, cx44, cy44, lens
+    // rotation (degrees), squeeze x, y[, rescale]: cos(2 phi) r^2 = d and
+    // cos(4 phi) r^4 = 2 d^2 - r^4 with d = x^2 - y^2, so the r^4 term
+    // takes c04 - c44 and the d^2 term 2 c44.
+    for (int i = 0; i < 4; ++i) c[i] = v[i];
+    c[4] = v[4] - v[8];
+    c[5] = v[5] - v[9];
+    c[6] = v[6];
+    c[7] = v[7];
+    c[8] = 2.0 * v[8];
+    c[9] = 2.0 * v[9];
+    // A = R(rot) @ Sx @ Sy [@ Rescale] @ Pa, B = Pa [@ Rescale] @ R(rot).
+    const double cs = cos(v[10] * deg2rad), sn = sin(v[10] * deg2rad);
+    const Mat2 rot = {cs, -sn, sn, cs};
+    const double pixel_aspect = fb[4];
+    const double x_scale = kind == TDE_ANAMORPHIC_DEG4_RESCALED
+                               ? v[13] * pixel_aspect
+                               : pixel_aspect;
+    post = matmul2(rot, {v[11] * x_scale, 0.0, 0.0, v[12]});
+    pre = inverse2(matmul2({x_scale, 0.0, 0.0, 1.0}, rot));
+  }
+
+  // _pack_params: both affine maps folded around the core.
+  Mat2 m_in = pre, m_out = post;
+  if (args.distort) {
+    m_in = inverse2(post);
+    m_out = inverse2(pre);
+  }
+  const double fbw = fb[0], fbh = fb[1], lcox = fb[2], lcoy = fb[3];
+  const double radius = hypot(fbw, fbh) * 0.5;
+  // unit = source * scale + shift: a pixel's centre, or S and T as is.
+  double scale_x = 1.0, scale_y = 1.0, shift_x = 0.0, shift_y = 0.0;
+  if (layer == 0 && args.width > 0) {
+    scale_x = 1.0 / args.width;
+    scale_y = 1.0 / args.height;
+    shift_x = 0.5 * scale_x;
+    shift_y = 0.5 * scale_y;
+  }
+  // dn = source * dn_scale + dn_shift.
+  const double dn_scale_x = scale_x * fbw / radius;
+  const double dn_scale_y = scale_y * fbh / radius;
+  const double dn_shift_x = ((shift_x - 0.5) * fbw - lcox) / radius;
+  const double dn_shift_y = ((shift_y - 0.5) * fbh - lcoy) / radius;
+  const double to_s = radius / fbw, to_t = radius / fbh;
+  const double packed[PARAM_COUNT] = {
+      c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9],
+      m_in.m00 * dn_scale_x, m_in.m01 * dn_scale_y,
+      m_in.m10 * dn_scale_x, m_in.m11 * dn_scale_y,
+      m_in.m00 * dn_shift_x + m_in.m01 * dn_shift_y,
+      m_in.m10 * dn_shift_x + m_in.m11 * dn_shift_y,
+      m_out.m00 * to_s, m_out.m01 * to_s, m_out.m10 * to_t, m_out.m11 * to_t,
+      0.5 + lcox / fbw, 0.5 + lcoy / fbh};
+  float* to = reinterpret_cast<float*>(out + layer);
+  for (int i = 0; i < PARAM_COUNT; ++i) to[i] = (float)packed[i];
+}
+
+// One launch of stmap_kernel<CORE, DISTORT, FROM_MAP> over the map; `p`
+// is the parameters (StmapParams) or their device address.
+template <int CORE, bool FROM_MAP, typename Params>
 void launch_core(float4* map, int width, int height, bool distort,
-                 const StmapParams& p, cudaStream_t stream) {
+                 const Params& p, cudaStream_t stream) {
   dim3 block(BLOCK_W, BLOCK_H);
-  dim3 grid((width + BLOCK_W - 1) / BLOCK_W,
-            (height + BLOCK_H - 1) / BLOCK_H);
   if (distort) {
+    constexpr int tile = PixelsPerThread<true, Params>::value * BLOCK_W;
+    dim3 grid((width + tile - 1) / tile, (height + BLOCK_H - 1) / BLOCK_H);
     stmap_kernel<CORE, true, FROM_MAP>
         <<<grid, block, 0, stream>>>(map, width, height, p);
   } else {
+    constexpr int tile = PixelsPerThread<false, Params>::value * BLOCK_W;
+    dim3 grid((width + tile - 1) / tile, (height + BLOCK_H - 1) / BLOCK_H);
     stmap_kernel<CORE, false, FROM_MAP>
         <<<grid, block, 0, stream>>>(map, width, height, p);
+  }
+}
+
+template <bool FROM_MAP, typename Params>
+void launch_map(float4* map, int width, int height, int core_id,
+                bool distort, const Params& p, cudaStream_t stream) {
+  switch (core_id) {
+    case CLASSIC:
+      launch_core<CLASSIC, FROM_MAP>(map, width, height, distort, p, stream);
+      break;
+    case RADIAL_DEG4:
+      launch_core<RADIAL_DEG4, FROM_MAP>(map, width, height, distort, p,
+                                         stream);
+      break;
+    default:
+      launch_core<ANAMORPHIC_DEG4, FROM_MAP>(map, width, height, distort, p,
+                                             stream);
+      break;
   }
 }
 
@@ -196,29 +523,64 @@ int launch(void* map, int width, int height, int core_id, int distort,
   StmapParams p;
   float* fields = reinterpret_cast<float*>(&p);
   for (int i = 0; i < PARAM_COUNT; ++i) fields[i] = host_params[i];
+  launch_map<FROM_MAP>(static_cast<float4*>(map), width, height, core_id,
+                       distort != 0, p, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
 
-  float4* m = static_cast<float4*>(map);
+// The pack launch for `layers` layers, then one map launch a layer, each
+// reading its own PARAM_COUNT floats of `params`; the first from the
+// pixel index unless FROM_MAP, every further one from the map.
+// `fields` holds FILM_BACK_FIELDS Field records, then MODEL_FIELDS a
+// layer; `kinds` a Model a layer; both are host memory, read before this
+// returns.  `params` is device memory for layers * PARAM_COUNT floats,
+// 8-byte aligned.  Returns as launch does.
+template <bool FROM_MAP>
+int launch_packed(void* map, int width, int height, int distort,
+                  int layers, const int* kinds, const Field* fields,
+                  float* params, void* stream) {
+  if (map == nullptr || kinds == nullptr || fields == nullptr ||
+      params == nullptr || width <= 0 || height <= 0 || layers < 1 ||
+      layers > PACK_LAYERS ||
+      reinterpret_cast<size_t>(params) % alignof(float2) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int layer = 0; layer < layers; ++layer) {
+    if (kinds[layer] < TDE_CLASSIC ||
+        kinds[layer] > TDE_ANAMORPHIC_DEG4_RESCALED) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  PackArgs args;
+  const int count = FILM_BACK_FIELDS + layers * MODEL_FIELDS;
+  for (int i = 0; i < count; ++i) args.field[i] = fields[i];
+  for (int layer = 0; layer < layers; ++layer) args.kind[layer] = kinds[layer];
+  args.layers = layers;
+  args.width = FROM_MAP ? 0 : width;
+  args.height = FROM_MAP ? 0 : height;
+  args.distort = distort;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (core_id) {
-    case CLASSIC:
-      launch_core<CLASSIC, FROM_MAP>(m, width, height, distort != 0, p, s);
-      break;
-    case RADIAL_DEG4:
-      launch_core<RADIAL_DEG4, FROM_MAP>(m, width, height, distort != 0, p,
-                                         s);
-      break;
-    default:
-      launch_core<ANAMORPHIC_DEG4, FROM_MAP>(m, width, height, distort != 0,
-                                             p, s);
-      break;
+  StmapParams* packed = reinterpret_cast<StmapParams*>(params);
+  pack_params_kernel<<<1, PACK_THREADS, 0, s>>>(args, packed);
+  float4* m = static_cast<float4*>(map);
+  for (int layer = 0; layer < layers; ++layer) {
+    // Both anamorphic models run the anamorphic core.
+    const int core_id = kinds[layer] < ANAMORPHIC_DEG4 ? kinds[layer]
+                                                       : ANAMORPHIC_DEG4;
+    const StmapParams* p = packed + layer;
+    if (FROM_MAP || layer > 0) {
+      launch_map<true>(m, width, height, core_id, distort != 0, p, s);
+    } else {
+      launch_map<false>(m, width, height, core_id, distort != 0, p, s);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes.  Both launch on `stream`, allocate
-// nothing and do not synchronise.
+// Plain C entry points for ctypes.  All four launch on `stream`,
+// allocate nothing and do not synchronise.
 
 // Writes height*width float4 texels [S, T, 0, 1] to the device pointer
 // `out`; the source point is the pixel index (col, row).
@@ -236,4 +598,30 @@ extern "C" int mmsolver_stmap_layer(void* map, int width, int height,
                                     const float* host_params, void* stream) {
   return launch<true>(map, width, height, core_id, distort, host_params,
                       stream);
+}
+
+// The same two with the lens given as Field records (see launch_packed):
+// each launches the pack kernel once for up to PACK_LAYERS layers, then
+// the map kernel a layer, reading the parameters from `params`.
+
+// Writes the map from the pixel index with the first layer and maps it
+// in place with each further one.
+extern "C" int mmsolver_stmap_packed(void* out, int width, int height,
+                                     int distort, int layers,
+                                     const int* kinds, const void* fields,
+                                     float* params, void* stream) {
+  return launch_packed<false>(out, width, height, distort, layers, kinds,
+                              static_cast<const Field*>(fields), params,
+                              stream);
+}
+
+// Maps the texels at `map` in place with every layer.
+extern "C" int mmsolver_stmap_layer_packed(void* map, int width, int height,
+                                           int distort, int layers,
+                                           const int* kinds,
+                                           const void* fields, float* params,
+                                           void* stream) {
+  return launch_packed<true>(map, width, height, distort, layers, kinds,
+                             static_cast<const Field*>(fields), params,
+                             stream);
 }

@@ -23,22 +23,36 @@ as an RGBA float32 ST-map (R=S, G=T, B=0, A=1).
 
 There is no fallback: on CUDA a 3DE layer launches its kernel or raises.
 
-The host half of the kernels (everything from _host_values down to
-_kernel_params) runs in Python floats, which are float64, after one
-device-to-host transfer a call, or none where the models and film back
-hold Python floats already (io/lensfile.py's models_at and film_back):
-it folds the direction, the film back and the image size into two
-affine maps around the polynomial core and hands the kernel one float32
-array.
+The kernels' parameters fold the direction, the film back and the image
+size into two affine maps around the polynomial core: 22 floats a layer,
+computed in float64.  Where that happens follows from where the lens's
+fields are (_packs_on_device):
 
-A CUDA call is the span "stmap.call" (utils/profiler.py), and inside it
-"stmap.host_read" (the transfer, counted in
+  * every field a Python number (io/lensfile.py's models_at and
+    film_back): on the host (_host_values reads nothing, _pack_params),
+    the floats handed to the kernel by value;
+  * any field a tensor on the map's CUDA device (a solved lens, or models
+    made on the card): on the device, by csrc/stmap.cu's pack kernel,
+    which reads the fields where they lie (_field_records), and the map
+    kernel reads its floats from there; nothing comes back to the host,
+    so the host does not wait for the card;
+  * CPU tensors, or tensors on another device: on the host after one
+    transfer (_host_values), as by value.
+
+A CUDA call is the span "stmap.call" (utils/profiler.py).  On the host
+paths it holds "stmap.host_read" (the transfer, counted in
 profiler.counters["host_reads"]), "stmap.pack" (the host arithmetic) and
-"stmap.launch" (the output's allocation and the launch).
+"stmap.launch" (the output's allocation and the launch); on the device
+path only "stmap.launch" (the field records, the allocations and the
+launches), and each launch of the pack kernel counts in
+profiler.counters["stmap.device_packs"].
 """
 
+import array
 import dataclasses
+import functools
 import math
+import struct
 
 import numpy as np
 import torch
@@ -55,6 +69,23 @@ _CORE_ANAMORPHIC_DEG4 = 2
 # csrc/stmap.cu's StmapParams holds 22 floats: 10 coefficients, then
 # a_in (4), b_in (2), a_out (4), b_out (2).
 _MAX_COEFFS = 10
+_PARAM_COUNT = _MAX_COEFFS + 12
+# csrc/stmap.cu's pack kernel: its Model kinds (a subclass before its
+# base), a model's fields padded to _MODEL_FIELDS records, and at most
+# _PACK_LAYERS layers a launch.
+_MODEL_KINDS = ((tde.TdeClassic, 0), (tde.TdeRadialStdDeg4, 1),
+                (tde.TdeAnamorphicStdDeg4Rescaled, 3),
+                (tde.TdeAnamorphicStdDeg4, 2))
+_MODEL_FIELDS = 14
+_PACK_LAYERS = 8
+# csrc/stmap.cu's Field: the host value, the device address of the
+# field's one element (0: the value is the field), whether that element
+# is a double, and 4 bytes of padding.
+_FIELD = "dQii"
+_PADDING = [0.0] * _MODEL_FIELDS
+# Whether the element the pack kernel reads at a field's address is a
+# double, for the element types it reads.
+_IS_DOUBLE = {torch.float32: 0, torch.float64: 1}
 
 
 def stmap_torch(model, film_back, width, height, direction="distort", *,
@@ -130,6 +161,148 @@ def _host_values(*objs):
                   for v in values]
     flat = iter(values)
     return [{n: float(next(flat)) for n in ns} for ns in names]
+
+
+@functools.lru_cache(maxsize=None)
+def _field_names(cls):
+    """The names of a model's or film back's fields, in the order of
+    dataclasses.fields, which is the order csrc/stmap.cu reads them in."""
+    return tuple(f.name for f in dataclasses.fields(cls))
+
+
+def _lens_fields(film_back, layers):
+    """(values, devices): the fields of a film back and its 3DE layers as
+    csrc/stmap.cu's pack kernel reads them, the film back's five, then
+    each layer's in dataclass order padded with zeros to _MODEL_FIELDS;
+    and the device of each field that is a tensor, None for a Python
+    number."""
+    values = [getattr(film_back, n) for n in _field_names(type(film_back))]
+    for model in layers:
+        names = _field_names(type(model))
+        values += [getattr(model, n) for n in names]
+        values += _PADDING[len(names):]
+    return values, [v.device if isinstance(v, torch.Tensor) else None
+                    for v in values]
+
+
+def _packs_on_device(field_devices, map_device):
+    """Whether the kernels' parameters are packed on the map's CUDA device
+    `map_device` (csrc/stmap.cu's pack kernel): where a field is a tensor
+    there and none is a tensor on another CUDA device.  `field_devices`
+    holds a field's device where it is a tensor, None where it is a
+    Python number (_lens_fields).  Python numbers and CPU tensors among
+    them ride along as host values.  Otherwise the host packs: with no
+    read where every field is a Python number, after one read where a
+    field is a tensor (_host_values)."""
+    cuda = set(field_devices)
+    cuda.discard(None)
+    cuda = {d for d in cuda if d.type == "cuda"}
+    if not cuda:
+        return False
+    if map_device.index is None:
+        map_device = torch.device(map_device.type,
+                                  torch.cuda.current_device())
+    return cuda == {map_device}
+
+
+def _model_kind(model):
+    """csrc/stmap.cu's Model kind of a 3DE model."""
+    for cls, kind in _MODEL_KINDS:
+        if isinstance(model, cls):
+            return kind
+    raise TypeError("no CUDA ST-map kernel for %r" % (type(model),))
+
+
+def _field_records(values, devices, device, keep):
+    """The flat values of csrc/stmap.cu's Field records of _lens_fields'
+    `values` and `devices`: a tensor on `device` by the address of its
+    element, a Python number or a tensor elsewhere (a CPU tensor,
+    _packs_on_device) by its value.  A tensor on `device` of neither
+    float32 nor float64 is converted to float64 there and the copy
+    appended to `keep`, which the caller holds until the launch is
+    queued.  Raises ValueError for a tensor that is not one number."""
+    out = []
+    for v, d in zip(values, devices):
+        if d is None:
+            out += (float(v), 0, 0, 0)
+            continue
+        if v.numel() != 1:
+            raise ValueError("a lens field holds %d numbers, not one"
+                             % v.numel())
+        if d != device:
+            out += (float(v), 0, 0, 0)
+            continue
+        is_double = _IS_DOUBLE.get(v.dtype)
+        if is_double is None:
+            v, is_double = v.to(torch.float64), 1
+            keep.append(v)
+        out += (0.0, v.data_ptr(), is_double, 0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _records(layers):
+    """The struct packing the film back's and `layers` models' Field
+    records, each model padded to _MODEL_FIELDS."""
+    return struct.Struct("<" + _FIELD * (5 + layers * _MODEL_FIELDS))
+
+
+def _packed_launch_args(st_map, layers, film_back, direction, from_pixels,
+                        params, keep, fields=None):
+    """(C entry point, its arguments) of csrc/stmap.cu's packed launch of
+    up to _PACK_LAYERS 3DE layers (in application order) on the (H, W, 4)
+    float32 CUDA map `st_map`, on its device's current stream: the pack
+    kernel writes each layer's floats to the device address `params`
+    onward, then one map launch a layer reads them there, the first from
+    the pixel index where `from_pixels`, every other in place.  `fields`
+    is _lens_fields' pair where the caller has it.  The arguments hold
+    the host records themselves; device copies that a field needed
+    (_field_records) go to `keep`."""
+    device = st_map.device
+    values, devices = fields or _lens_fields(film_back, layers)
+    records = _field_records(values, devices, device, keep)
+    kinds = array.array("i", [_model_kind(m) for m in layers])
+    height, width = st_map.shape[:2]
+    function = _kernels.stmap_packed_functions()[not from_pixels]
+    # The raw stream of torch.cuda.current_stream(device).cuda_stream,
+    # without making a Stream object (a few microseconds a call).
+    return function, (st_map.data_ptr(), width, height,
+                      int(direction == "distort"), len(layers),
+                      kinds.tobytes(), _records(len(layers)).pack(*records),
+                      params, torch._C._cuda_getCurrentRawStream(
+                          device.index))
+
+
+def _launch_packed(st_map, layers, film_back, direction, from_pixels,
+                   fields=None):
+    """The lens stack `layers` (3DE models, in application order) on the
+    (H, W, 4) float32 CUDA map `st_map` with its parameters packed on the
+    map's device (_packed_launch_args), into a buffer allocated here: one
+    pack launch for every _PACK_LAYERS layers.  `fields` is _lens_fields'
+    pair of a stack of at most _PACK_LAYERS layers where the caller has
+    it.  Nothing is read back to the host and nothing waits.  Counts the
+    launches."""
+    device = st_map.device
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch_packed(st_map, layers, film_back, direction,
+                                  from_pixels, fields)
+    params = torch.empty(len(layers) * _PARAM_COUNT, dtype=torch.float32,
+                         device=device)
+    keep = []
+    for first in range(0, len(layers), _PACK_LAYERS):
+        function, args = _packed_launch_args(
+            st_map, layers[first:first + _PACK_LAYERS], film_back,
+            direction, from_pixels and first == 0,
+            params.data_ptr() + 4 * _PARAM_COUNT * first, keep,
+            fields if len(layers) <= _PACK_LAYERS else None)
+        err = function(*args)
+        if err != 0:
+            raise RuntimeError("stmap kernel launch failed: CUDA error %d"
+                               % err)
+        profiler.counters["stmap.device_packs"] += 1
+    profiler.counters["stmap.launches"] += int(from_pixels)
+    profiler.counters["stmap_layer.launches"] += len(layers) - from_pixels
 
 
 # 2x2 matrices on the host are ((m00, m01), (m10, m11)) of Python floats:
@@ -285,6 +458,30 @@ def _launch(function, st_map, core_id, direction, params):
         raise RuntimeError("stmap kernel launch failed: CUDA error %d" % err)
 
 
+def _checked_size(width, height, direction):
+    """(width, height) as ints; raises ValueError for a size that is not
+    positive or a direction that is neither 'distort' nor 'undistort'."""
+    if direction not in ("distort", "undistort"):
+        raise ValueError("direction must be 'distort' or 'undistort'")
+    width, height = int(width), int(height)
+    if width <= 0 or height <= 0:
+        raise ValueError("image size must be positive: %dx%d"
+                         % (width, height))
+    return width, height
+
+
+def _packed_map(layers, film_back, width, height, direction, device,
+                fields):
+    """A new (H, W, 4) float32 map on the CUDA `device` made by the lens
+    stack `layers` with its parameters packed there (_launch_packed, with
+    _lens_fields' `fields`); the span "stmap.launch"."""
+    with span("stmap.launch"):
+        out = torch.empty((height, width, 4), dtype=torch.float32,
+                          device=device)
+        _launch_packed(out, layers, film_back, direction, True, fields)
+    return out
+
+
 def stmap_cuda(model, film_back, width, height, direction="distort", *,
                device, host_values=None):
     """ST map by the Hopper kernel (csrc/stmap.cu) for the four 3DE
@@ -292,20 +489,22 @@ def stmap_cuda(model, film_back, width, height, direction="distort", *,
 
     Raises unless `device` is a CUDA device; builds the kernel at first
     use.  The kernel takes no tensor input: it writes the contiguous
-    float32 output allocated here.  `host_values` spares the
-    device-to-host transfer (see _kernel_params).  Each launch adds one
-    to profiler.counters["stmap.launches"].
+    float32 output allocated here.  A lens with a field on `device` is
+    packed there (_launch_packed); otherwise, or where `host_values` is
+    given, on the host, where `host_values` spares the device-to-host
+    transfer (see _kernel_params).  Each launch adds one to
+    profiler.counters["stmap.launches"].
     """
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("stmap_cuda needs a CUDA device, got %s" % device)
-    if direction not in ("distort", "undistort"):
-        raise ValueError("direction must be 'distort' or 'undistort'")
-    width, height = int(width), int(height)
-    if width <= 0 or height <= 0:
-        raise ValueError("image size must be positive: %dx%d"
-                         % (width, height))
+    width, height = _checked_size(width, height, direction)
     with span("stmap.call"):
+        if host_values is None:
+            fields = _lens_fields(film_back, [model])
+            if _packs_on_device(fields[1], device):
+                return _packed_map([model], film_back, width, height,
+                                   direction, device, fields)
         core_id, params = _kernel_params(model, film_back, direction,
                                          (width, height), host_values)
         with span("stmap.launch"):
@@ -324,8 +523,8 @@ def stmap_layer_cuda(st_map, model, film_back, direction="distort", *,
     texel's (S, T) is mapped, channels 2 and 3 stay.  Returns `st_map`.
 
     `st_map` must be a contiguous float32 (H, W, 4) tensor on a CUDA
-    device; anything else raises.  `host_values` spares the
-    device-to-host transfer (see _kernel_params).  Each launch adds one
+    device; anything else raises.  The parameters are packed as by
+    stmap_cuda, on the map's device or on the host.  Each launch adds one
     to profiler.counters["stmap_layer.launches"].
     """
     if not isinstance(st_map, torch.Tensor) or not st_map.is_cuda:
@@ -340,6 +539,13 @@ def stmap_layer_cuda(st_map, model, film_back, direction="distort", *,
     if direction not in ("distort", "undistort"):
         raise ValueError("direction must be 'distort' or 'undistort'")
     with span("stmap.call"):
+        if host_values is None:
+            fields = _lens_fields(film_back, [model])
+            if _packs_on_device(fields[1], st_map.device):
+                with span("stmap.launch"):
+                    _launch_packed(st_map, [model], film_back, direction,
+                                   False, fields)
+                return st_map
         core_id, params = _kernel_params(model, film_back, direction, None,
                                          host_values)
         with span("stmap.launch"):
@@ -400,8 +606,10 @@ def stmap_stack(models, film_back, width, height, direction="distort", *,
     device every 3DE layer is one kernel launch — the first writes the
     map from the pixel index (stmap_cuda's kernel), each further one
     maps it in place (stmap_layer_cuda's) — with the parameters of all
-    layers fetched in one device-to-host transfer; a Passthrough layer
-    is the identity and launches nothing; there is no fallback.
+    layers packed in one launch on the device where a field lies there,
+    else on the host after at most one device-to-host transfer (see
+    stmap_cuda); a Passthrough layer is the identity and launches
+    nothing; there is no fallback.
     """
     device = torch.device(device)
     if device.type == "cpu":
@@ -415,6 +623,11 @@ def stmap_stack(models, film_back, width, height, direction="distort", *,
         return stmap(tde.Passthrough(), film_back, width, height, direction,
                      device=device)
     with span("stmap.call"):
+        fields = _lens_fields(film_back, layers)
+        if _packs_on_device(fields[1], device):
+            return _packed_map(layers, film_back,
+                               *_checked_size(width, height, direction),
+                               direction, device, fields)
         fb_values, *layer_values = _host_values(film_back, *layers)
         out = stmap_cuda(layers[0], film_back, width, height, direction,
                          device=device,

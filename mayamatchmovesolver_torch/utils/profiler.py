@@ -27,9 +27,11 @@ The program's own instrumentation lives here too, one of each kind:
   counters    integers counted at the same boundaries, always on:
               "stmap.launches" and "stmap_layer.launches" (kernel
               launches of ops/stmap.py's two C entry points),
-              "warp.launches" (kernel launches of ops/warp.py's) and
+              "warp.launches" (kernel launches of ops/warp.py's),
               "host_reads" (device-to-host transfers of
-              ops/stmap.py::_host_values).
+              ops/stmap.py::_host_values) and "stmap.device_packs"
+              (launches of csrc/stmap.cu's pack kernel, which packs a
+              lens held on the card where it lies).
 """
 
 import collections

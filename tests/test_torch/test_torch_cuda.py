@@ -26,6 +26,8 @@ within 1e-4 of the CPU's (float32 on both; a 6-parameter pose from 8
 exact points).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -275,9 +277,13 @@ def test_stmap_layer_cuda_refuses_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_stmap_spans_and_counters_on_cuda():
     """Under a capture with spans on, each CUDA call of the ST-map wrapper
-    is a "stmap.call" holding its read (one counted host read, none when
-    handed the values), its packing and its launch (one counted launch);
-    a stack reads once for its layers; a warp is one "warp.call"."""
+    is a "stmap.call".  A lens held on the card is packed there: the call
+    holds only its launch (one counted pack a call, or a stack, and no
+    host read).  Handed the values, a call holds its packing and launch;
+    a lens of CPU tensors is read on the host, the call holding its read
+    (one counted host read), its packing and its launch, and a stack
+    reads once for its layers.  Each counts its map launches; a warp is
+    one "warp.call"."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from torch.profiler import ProfilerActivity, profile
@@ -287,7 +293,10 @@ def test_stmap_spans_and_counters_on_cuda():
 
     model, fb = torch_model("classic", device="cuda")
     radial, _ = torch_model("radial_deg4", device="cuda")
+    host_model, host_fb = torch_model("classic")
+    host_radial, _ = torch_model("radial_deg4")
     before = counters.copy()
+    packed = [("stmap.call", None), ("stmap.launch", "stmap.call")]
     call = [("stmap.call", None), ("stmap.host_read", "stmap.call"),
             ("stmap.pack", "stmap.call"), ("stmap.launch", "stmap.call")]
     given = t_stmap._host_values(fb, model)
@@ -300,26 +309,186 @@ def test_stmap_spans_and_counters_on_cuda():
             torch.cuda.synchronize()
         return out, program_ranges(prof.events())
 
+    def packs():
+        return counters["stmap.device_packs"] - before["stmap.device_packs"]
+
     st_map, ranges = captured(lambda: t_stmap.stmap_cuda(
         model, fb, 64, 32, device="cuda"))
-    assert ranges == call and counters["host_reads"] == reads + 1
+    assert ranges == packed and packs() == 1
     _, ranges = captured(lambda: t_stmap.stmap_cuda(
         model, fb, 64, 32, device="cuda", host_values=given))
-    assert ranges == [call[0]] + call[2:]
+    assert ranges == [call[0]] + call[2:] and packs() == 1
     _, ranges = captured(lambda: t_stmap.stmap_layer_cuda(
         st_map, radial, fb))
-    assert ranges == call and counters["host_reads"] == reads + 2
+    assert ranges == packed and packs() == 2
     _, ranges = captured(lambda: t_stmap.stmap_stack(
         [model, radial], fb, 64, 32, device="cuda"))
+    assert ranges == packed and packs() == 3
+    assert counters["host_reads"] == reads
+    _, ranges = captured(lambda: t_stmap.stmap_cuda(
+        host_model, host_fb, 64, 32, device="cuda"))
+    assert ranges == call and counters["host_reads"] == reads + 1
+    _, ranges = captured(lambda: t_stmap.stmap_layer_cuda(
+        st_map, host_radial, host_fb))
+    assert ranges == call and counters["host_reads"] == reads + 2
+    _, ranges = captured(lambda: t_stmap.stmap_stack(
+        [host_model, host_radial], host_fb, 64, 32, device="cuda"))
     inner = [(name, "stmap.call") for name, _ in call[:1] + call[2:]]
     assert ranges == call[:2] + inner + inner
-    assert counters["host_reads"] == reads + 3
+    assert counters["host_reads"] == reads + 3 and packs() == 3
     image = torch.rand(32, 64, 4, device="cuda")
     _, ranges = captured(lambda: t_warp.warp_image(image, st_map))
     assert ranges == [("warp.call", None)]
-    assert counters["stmap.launches"] == before["stmap.launches"] + 3
+    assert counters["stmap.launches"] == before["stmap.launches"] + 5
     assert counters["stmap_layer.launches"] == (
-        before["stmap_layer.launches"] + 2)
+        before["stmap_layer.launches"] + 4)
+
+
+def _lens_fields(name, kind):
+    """(model, film back) of MODELS[name] on the card with fields of one
+    kind: "float32" or "float64" tensors, or "mixed": the model's fields
+    in turn Python floats and float64 tensors, the film back Python
+    floats but its width a float32 tensor."""
+    if kind != "mixed":
+        model, fb = torch_model(name, device="cuda")
+        dtype = getattr(torch, kind)
+        return tuple(type(o)(**{k: v.to(dtype) for k, v in vars(o).items()})
+                     for o in (model, fb))
+    model, fb = torch_model(name)
+    model = type(model)(**{
+        k: float(v) if i % 2 else v.to("cuda", torch.float64)
+        for i, (k, v) in enumerate(vars(model).items())})
+    fb = type(fb)(**{k: float(v) for k, v in vars(fb).items()})
+    return model, dataclasses.replace(
+        fb, film_back_width_cm=torch.tensor(
+            fb.film_back_width_cm, dtype=torch.float32, device="cuda"))
+
+
+def _within_one_ulp(got, want):
+    """float32 arrays equal but for one unit in the last place."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    step = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+    return bool((np.abs(got - want) <= step).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["pixels", "map"])
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_device_pack_equals_the_host_pack(name, direction, source):
+    """csrc/stmap.cu's pack kernel writes the 22 floats _pack_params
+    computes on the host, to within one float32 ulp, from float32,
+    float64 and mixed fields, for the pixel index and the layer source."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    st_map = torch.zeros((1080, 1920, 4), device="cuda")
+    size = (1920, 1080) if source == "pixels" else None
+    for kind in ("float32", "float64", "mixed"):
+        model, fb = _lens_fields(name, kind)
+        fb_values, values = t_stmap._host_values(fb, model)
+        _, want = t_stmap._pack_params(model, values, fb_values, direction,
+                                       size)
+        params = torch.full((t_stmap._PARAM_COUNT,), float("nan"),
+                            device="cuda")
+        function, args = t_stmap._packed_launch_args(
+            st_map, [model], fb, direction, size is not None,
+            params.data_ptr(), [])
+        assert function(*args) == 0
+        got = params.cpu().numpy()
+        assert _within_one_ulp(got, want), (kind, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_device_packed_maps_match_by_value_and_plain(name, direction):
+    """A lens held on the card: stmap_cuda and stmap_layer_cuda pack it
+    there (one pack and one map launch a call, no host read) and give the
+    by-value kernel's map within 1e-6 and the plain version's within
+    2e-5, for float32, float64 and mixed fields."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    names = list(MODELS)
+    for kind in ("float32", "float64", "mixed"):
+        model, fb = _lens_fields(name, kind)
+        other, _ = _lens_fields(names[(names.index(name) + 1) % 4], kind)
+        other = weaker(other, 0.3)
+        before = counters.copy()
+        got = t_stmap.stmap_cuda(model, fb, 1001, 333, direction,
+                                 device="cuda")
+        work = t_stmap.stmap_cuda(other, fb, 1001, 333, direction,
+                                  device="cuda")
+        source = work.clone()
+        assert t_stmap.stmap_layer_cuda(work, model, fb, direction) is work
+        assert counters["host_reads"] == before["host_reads"]
+        for key, n in (("stmap.device_packs", 3), ("stmap.launches", 2),
+                       ("stmap_layer.launches", 1)):
+            assert counters[key] == before[key] + n, (kind, key)
+        given = t_stmap._host_values(fb, model)
+        by_value = t_stmap.stmap_cuda(model, fb, 1001, 333, direction,
+                                      device="cuda", host_values=given)
+        layer_by_value = t_stmap.stmap_layer_cuda(
+            source.clone(), model, fb, direction, host_values=given)
+        # The plain version of the same numbers, as Python floats: it
+        # takes no lens of mixed dtypes.
+        fb_floats, floats = (type(o)(**v) for o, v in zip((fb, model),
+                                                           given))
+        plain = t_stmap.stmap_torch(floats, fb_floats, 1001, 333, direction,
+                                    device="cuda")
+        layer_plain = t_stmap.stmap_layer_torch(source, floats, fb_floats,
+                                                direction)
+        torch.cuda.synchronize()
+        for a, b, tol in ((got, by_value, 1e-6), (got, plain, ATOL),
+                          (work, layer_by_value, 1e-6),
+                          (work, layer_plain, ATOL)):
+            assert float((a - b).abs().max()) <= tol, (kind, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_stmap_stack_packs_once_for_its_layers(direction):
+    """A stack held on the card is one pack launch for up to eight
+    layers: two layers one, nine two; no host read; the map equals the
+    same stack read to the host and launched by value within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    lenses = [torch_model(n, device="cuda")[0] for n in MODELS]
+    _, fb = torch_model("classic", device="cuda")
+    _, host_fb = torch_model("classic")
+    for layers, packs in ((lenses[:2], 1),
+                          ([weaker(m, 0.1) for m in lenses * 2]
+                           + [weaker(lenses[0], 0.1)], 2)):
+        before = counters.copy()
+        got = t_stmap.stmap_stack(layers, fb, 640, 360, direction,
+                                  device="cuda")
+        assert counters["host_reads"] == before["host_reads"]
+        for key, n in (("stmap.device_packs", packs), ("stmap.launches", 1),
+                       ("stmap_layer.launches", len(layers) - 1)):
+            assert counters[key] == before[key] + n, (len(layers), key)
+        host = [type(m)(**{k: v.cpu() for k, v in vars(m).items()})
+                for m in layers]
+        want = t_stmap.stmap_stack(host, host_fb, 640, 360, direction,
+                                   device="cuda")
+        assert counters["host_reads"] == before["host_reads"] + 1
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-6, len(layers)
+
+
+@pytest.mark.cuda
+def test_device_pack_refuses_a_field_that_is_not_one_number():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    model, fb = torch_model("classic", device="cuda")
+    bad = dataclasses.replace(model, distortion=torch.zeros(2, device="cuda"))
+    good = t_stmap.stmap_cuda(model, fb, 64, 32, device="cuda")
+    before = counters.copy()
+    with pytest.raises(ValueError, match="2 numbers, not one"):
+        t_stmap.stmap_cuda(bad, fb, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="2 numbers, not one"):
+        t_stmap.stmap_layer_cuda(good, bad, fb)
+    with pytest.raises(ValueError, match="2 numbers, not one"):
+        t_stmap.stmap_stack([model, bad], fb, 64, 32, device="cuda")
+    assert counters == before
 
 
 # name: (image (H, W, C), map (H', W', channels), how the kernel is handed
