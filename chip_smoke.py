@@ -4,10 +4,9 @@
 Builds the port's CUDA kernels from the sources in this checkout (the
 ST-map kernel and its layer variant, both of csrc/stmap.cu, and the
 image warp of csrc/warp.cu), reads their registers and SASS opcode
-counts, holds each ST-map kernel against its plain PyTorch version, sets
-the map kernel that reads parameters packed on the device beside the
-by-value one (phase 3b), then drives the port's main paths and checks
-what comes out:
+counts, holds each ST-map kernel against its plain PyTorch version and
+times it and the pack kernel before it against the bound, then drives
+the port's main paths and checks what comes out:
 
   * phases 4-5: a dense lens + focal + camera solve of a synthetic HD
     shot on the card, and the ST-map export of the solved lens;
@@ -85,8 +84,9 @@ import numpy as np
 import torch
 
 # Kernel-vs-plain tolerance: float32 on both sides, operations in
-# another order (the kernel folds the frames around the polynomial into
-# two affine maps on the host, needs no division and contracts into FMAs).
+# another order (the pack kernel folds the frames around the polynomial
+# into two affine maps in float64, the map kernel needs no division and
+# contracts into FMAs).
 TOL = 2e-5
 HD = (1920, 1080)
 RAGGED = (1001, 333)
@@ -213,7 +213,8 @@ H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
 # Floating-point operations per pixel the map needs, an FMA counted as
 # two.  The frame: the pixel-to-core map is affine in (col, row) once
-# the host folds the pixel-to-dn scaling into m_in (2 FMAs per axis, 8),
+# the pack kernel folds the pixel-to-dn scaling into m_in (2 FMAs per
+# axis, 8),
 # and so is the core-to-unit map with m_out (8).  Between them one step
 # a +- h(x, y) per evaluation, with h = core - identity: the fixed
 # point's update p <- t - h(p) is the step's last FMA, and its start is
@@ -221,7 +222,7 @@ H100_HBM_BYTES_PER_S = 3.35e12
 # The classic step needs x2, y2, r2, r4 and 7 per axis (18); the radial
 # one x2, y2, r2, 2x, 2xy, the radial factor (3), u, v (4), r2 + 2x2,
 # r2 + 2y2 (4) and 6 FMAs (28); the anamorphic one, a polynomial in r2
-# and d = x2 - y2 with coefficients folded on the host (cos2*r2 = d,
+# and d = x2 - y2 with coefficients folded by the pack kernel (cos2*r2 = d,
 # cos4*r4 = 2*d^2 - r4, no division), x2, y2, r2, d and 11 per axis
 # (26).  Undistort is one step, distort 1 + DISTORT_INVERSE_ITERATIONS.
 STMAP_FRAME_FLOPS = 16
@@ -233,24 +234,6 @@ STMAP_STEP_FLOPS = {"TdeClassic": 18, "TdeRadialStdDeg4": 28,
 # L2 before its turn comes again and the memory bound applies.  Phase 11
 # warps as many images through as many maps into as many outputs.
 TIMING_ROTATION = 4
-
-# The by-value kernels as PERF.md's kernel table has them:
-# registers, FP32 opcodes (FFMA + FMUL + FADD) and all SASS opcodes.
-# Phase 3b fails where the build differs.
-BY_VALUE_BUILD = {
-    "classic distort from-pixel": (18, 260, 304),
-    "classic undistort from-pixel": (18, 20, 64),
-    "radial distort from-pixel": (22, 365, 408),
-    "radial undistort from-pixel": (20, 25, 72),
-    "anamorphic distort from-pixel": (20, 323, 368),
-    "anamorphic undistort from-pixel": (18, 23, 72),
-    "classic distort from-map": (20, 260, 304),
-    "classic undistort from-map": (16, 20, 64),
-    "radial distort from-map": (24, 365, 408),
-    "radial undistort from-map": (22, 25, 64),
-    "anamorphic distort from-map": (22, 323, 368),
-    "anamorphic undistort from-map": (20, 23, 64),
-}
 
 STMAP_SOURCE = "mayamatchmovesolver_torch/csrc/stmap.cu"
 STMAP_REPLACES = "mayamatchmovesolver_tpu/ops/stmap.py:197"
@@ -470,27 +453,29 @@ def _cuda_ms(fn, launches=20, repeats=5):
 
 
 def _raw_launch(model, fb, direction, maps, from_map):
-    """A kernel alone: its C entry point with the arguments made once,
-    as a no-argument call (no wrapper, no launch count) that takes the
-    (H, W, 4) maps in `maps` in turn: the kernel that starts from the
-    pixel index writes them, the layer variant (`from_map`) maps them in
-    place."""
-    from mayamatchmovesolver_torch import _kernels
+    """The kernels alone: their C entry point with the arguments made
+    once, as a no-argument call (no wrapper, no launch count) that takes
+    the (H, W, 4) maps in `maps` in turn: the pack kernel, then the map
+    kernel that starts from the pixel index and writes the map, or the
+    layer variant (`from_map`) that maps it in place."""
     from mayamatchmovesolver_torch.ops import stmap as stmap_mod
 
-    height, width = maps[0].shape[:2]
-    core_id, params = stmap_mod._kernel_params(
-        model, fb, direction, None if from_map else (width, height))
-    function = _kernels.stmap_functions()[from_map]
+    device = maps[0].device
+    params = torch.empty(stmap_mod._PARAM_COUNT, dtype=torch.float32,
+                         device=device)
+    keep = []
+    records = stmap_mod._field_records(
+        *stmap_mod._lens_fields(fb, [model]), device, keep)
     # At 10 microseconds a kernel, a launch loop that does more than the
     # bare C call is bound by the host, and its reading wanders between
     # 1x and 2x the kernel's time.
-    turns = itertools.cycle([
-        stmap_mod._launch_args(st_map, core_id, direction, params)
-        for st_map in maps])
+    turns = itertools.cycle([stmap_mod._packed_launch_args(
+        st_map, [model], direction, not from_map, records,
+        params.data_ptr()) for st_map in maps])
 
-    def launch(keep=(maps, params)):  # what the addresses in turns point to
-        err = function(*next(turns))
+    def launch(held=(maps, params, keep)):  # what the addresses point to
+        function, args = next(turns)
+        err = function(*args)
         if err != 0:
             raise RuntimeError("stmap kernel launch failed: %d" % err)
 
@@ -540,20 +525,16 @@ def phase_device():
 
 def _kernel_label(mangled):
     """'classic distort from-map' from a stmap_kernel<CORE, DISTORT,
-    FROM_MAP> instantiation's mangled name, with ' packed' after it for
-    the overload that reads its parameters from device memory; None for
-    another symbol."""
+    FROM_MAP> instantiation's mangled name; None for another symbol."""
     import re
 
-    found = re.search(r"stmap_kernelILi(\d)ELb(\d)ELb(\d)EEEvP6float4ii(PK)?",
-                      mangled)
+    found = re.search(r"stmap_kernelILi(\d)ELb(\d)ELb(\d)E", mangled)
     if not found:
         return None
-    core, distort, from_map = (int(g) for g in found.groups()[:3])
-    return "%s %s %s%s" % (("classic", "radial", "anamorphic")[core],
-                           ("undistort", "distort")[distort],
-                           ("from-pixel", "from-map")[from_map],
-                           " packed" if found.group(4) else "")
+    core, distort, from_map = (int(g) for g in found.groups())
+    return "%s %s %s" % (("classic", "radial", "anamorphic")[core],
+                         ("undistort", "distort")[distort],
+                         ("from-pixel", "from-map")[from_map])
 
 
 def _warp_label(mangled):
@@ -624,30 +605,26 @@ def sass_counts(library, label=_kernel_label):
 def phase_build():
     """Build csrc/stmap.cu and csrc/warp.cu, bind their entry points, and
     print what the compiler made of each kernel: registers, stack and
-    spills a thread (ptxas) and the SASS opcode counts (cuobjdump).
-    Returns the ST-map kernels' (kernel_resources, sass_counts)."""
+    spills a thread (ptxas) and the SASS opcode counts (cuobjdump)."""
     from mayamatchmovesolver_torch import _kernels
 
     t0 = time.perf_counter()
     path = _kernels.build("stmap")
     _kernels.stmap_functions()
-    _kernels.stmap_packed_functions()
     print("[2 build] %s in %.2f s (%s)" % (
         path.name, time.perf_counter() - t0, " ".join(_kernels.NVCC_FLAGS)))
     resources = kernel_resources(
         _kernels.resource_usage_path("stmap").read_text())
     counts = sass_counts(path)
-    if len(counts) != 24 or set(counts) != set(resources):
+    if len(counts) != 12 or set(counts) != set(resources):
         raise AssertionError(
-            "expected 24 stmap_kernel instantiations (12 by value, 12 "
-            "packed), ptxas reports %d and the SASS holds %d" % (
-                len(resources), len(counts)))
-    stmap_built = (resources, counts)
+            "expected 12 stmap_kernel instantiations, ptxas reports %d and "
+            "the SASS holds %d" % (len(resources), len(counts)))
     for label in sorted(counts):
         ops = counts[label]
         named = ("FFMA", "FMUL", "FADD")
         registers, stack, spills = resources[label]
-        print("[2 build] %-37s %2d registers, %d bytes stack, %d bytes "
+        print("[2 build] %-30s %2d registers, %d bytes stack, %d bytes "
               "spilled; SASS %3d opcodes: %s, other %d; MUFU %d" % (
                   label, registers, stack, spills, sum(ops.values()),
                   ", ".join("%s %d" % (n, ops[n]) for n in named),
@@ -683,7 +660,41 @@ def phase_build():
         if ops["FFMA"] or ops["DFMA"] or stack or spills:
             raise AssertionError("%s: an FMA or a spill in the warp "
                                  "kernel" % label)
-    return stmap_built
+
+
+def _kernel_device_ms(fn, launches=100):
+    """{kernel name: (median device ms, launches)} of `launches` calls of
+    fn under torch.profiler after a warm-up, from the kernels' own device
+    time (the profiler slows the host, not the device)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    times = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name].append(
+                (e.time_range.end - e.time_range.start) * 1e-3)
+    return {name: (statistics.median(v), len(v))
+            for name, v in times.items()}
+
+
+def _one_kernel(times, needle, tag):
+    """The (ms, launches) of the one kernel whose name holds `needle`."""
+    found = [v for name, v in times.items() if needle in name]
+    if len(found) != 1:
+        raise AssertionError("%s: %d kernels named like %r under the "
+                             "profiler: %s" % (tag, len(found), needle,
+                                               sorted(times)))
+    return found[0]
 
 
 def _layer_source_model(name, models, device):
@@ -753,28 +764,34 @@ def phase_kernel_vs_plain(device):
         finite = bool(got.isfinite().all())
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"],
                                              diff)
-        line = "[3 kernel %s] %-28s %-9s %4dx%-4d max|diff| %.3g" % (
-            kernel, name, direction, w, h, diff)
+        tag = "[3 kernel %s]" % kernel
+        line = "%s %-28s %-9s %4dx%-4d max|diff| %.3g" % (
+            tag, name, direction, w, h, diff)
         if (w, h) == HD:
             # Launched in place over and over, a map's values run away
             # to inf and NaN; the kernels have no branch on their data,
-            # so their time does not depend on them.
+            # so their time does not depend on them.  Each launch is the
+            # pack kernel, then the map kernel: the profiler times each
+            # on the device.
             maps = [got.clone() for _ in range(TIMING_ROTATION)]
-            ms = _cuda_ms(_raw_launch(model, fb, direction, maps, from_map),
-                          launches=100)
+            times = _kernel_device_ms(_raw_launch(model, fb, direction, maps,
+                                                  from_map))
+            ms, _ = _one_kernel(times, "stmap_kernel", tag)
+            pack_ms, _ = _one_kernel(times, "pack_params_kernel", tag)
             # One map again and again stays in the L2, as a stack's map
             # does between its layers.
-            l2_ms = _cuda_ms(_raw_launch(model, fb, direction, maps[:1],
-                                         from_map), launches=100)
+            l2_ms, _ = _one_kernel(_kernel_device_ms(_raw_launch(
+                model, fb, direction, maps[:1], from_map)), "stmap_kernel",
+                tag)
             del maps
             call_ms = _cuda_ms(call)
             plain_ms = _cuda_ms(plain)
             bound_ms, bound_by = stmap_bound(name, direction, w, h, from_map)
             line += ("  kernel %.4f ms (on one map, in the L2: %.4f ms)  "
-                     "wrapper call %.4f ms  plain %.4f ms  bound %.4f ms "
-                     "by %s (%.0f%% of it)" % (
-                         ms, l2_ms, call_ms, plain_ms, bound_ms, bound_by,
-                         100.0 * bound_ms / ms))
+                     "pack %.4f ms  wrapper call %.4f ms  plain %.4f ms  "
+                     "bound %.4f ms by %s (%.0f%% of it)" % (
+                         ms, l2_ms, pack_ms, call_ms, plain_ms, bound_ms,
+                         bound_by, 100.0 * bound_ms / ms))
             if not ms >= bound_ms:
                 raise AssertionError(
                     "%s %s %s: %.4f ms is under the bound of %.4f ms: the "
@@ -790,176 +807,6 @@ def phase_kernel_vs_plain(device):
                 "max|diff| %g > %g (finite: %s)" % (
                     kernel, name, direction, w, h, diff, TOL, finite))
     return results
-
-
-def _packed_raw_launch(model, fb, direction, maps, from_map):
-    """_raw_launch's twin for the packed entry points: the pack kernel and
-    the map kernel that reads its floats from the device, their C call
-    made once a map with the lens's fields on the card."""
-    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
-
-    params = torch.empty(stmap_mod._PARAM_COUNT, dtype=torch.float32,
-                         device=maps[0].device)
-    keep = []
-    turns = itertools.cycle([stmap_mod._packed_launch_args(
-        st_map, [model], fb, direction, not from_map, params.data_ptr(),
-        keep) for st_map in maps])
-
-    def launch(held=(maps, params, keep)):  # what the addresses point to
-        function, args = next(turns)
-        err = function(*args)
-        if err != 0:
-            raise RuntimeError("packed stmap launch failed: %d" % err)
-
-    return launch
-
-
-def _kernel_device_ms(fn, launches=100):
-    """{kernel name: (median device ms, launches)} of `launches` calls of
-    fn under torch.profiler after a warm-up, from the kernels' own device
-    time (the profiler slows the host, not the device)."""
-    import collections
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    times = collections.defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            times[e.name].append(
-                (e.time_range.end - e.time_range.start) * 1e-3)
-    return {name: (statistics.median(v), len(v))
-            for name, v in times.items()}
-
-
-def _one_kernel(times, needle, tag):
-    """The (ms, launches) of the one kernel whose name holds `needle`."""
-    found = [v for name, v in times.items() if needle in name]
-    if len(found) != 1:
-        raise AssertionError("%s: %d kernels named like %r under the "
-                             "profiler: %s" % (tag, len(found), needle,
-                                               sorted(times)))
-    return found[0]
-
-
-def phase_packed_vs_by_value(device, built):
-    """The map kernel that reads its parameters from device memory (the
-    lens held on the card, packed there by pack_params_kernel) beside the
-    by-value kernel, for every core and direction, from the pixel index
-    and from a map, at HD: each kernel's device time under the profiler
-    over TIMING_ROTATION maps (past the L2), the pack kernel's, both
-    registers, the wrapper call through either path and the maps' largest
-    difference.  Fails on a spill, a time under the bound, a map more
-    than 1e-6 off the by-value one, or a by-value kernel whose registers
-    or SASS counts are not PERF.md's (BY_VALUE_BUILD)."""
-    from mayamatchmovesolver_torch import models
-    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
-    from mayamatchmovesolver_torch.utils.profiler import counters
-
-    resources, counts = built
-    tag = "[3b packed]"
-    for label, (registers, fp32, total) in sorted(BY_VALUE_BUILD.items()):
-        ops = counts[label]
-        got = (resources[label][0],
-               ops["FFMA"] + ops["FMUL"] + ops["FADD"], sum(ops.values()))
-        if got != (registers, fp32, total):
-            raise AssertionError(
-                "%s by-value %s: registers, FP32 and all SASS opcodes %s, "
-                "not PERF.md's %s" % (tag, label, got,
-                                      (registers, fp32, total)))
-    print("%s the 12 by-value kernels: registers and SASS as in PERF.md"
-          % tag)
-    fb = models.FilmBack.create(width_cm=3.6, height_cm=2.4,
-                                offset_x_cm=0.05, offset_y_cm=-0.02,
-                                device=device, dtype=torch.float32)
-    host_fb = type(fb)(**{k: float(v) for k, v in vars(fb).items()})
-    pack_ms = []
-    for name, params in MODEL_PARAMS.items():
-        model = getattr(models, name).create(**params, device=device,
-                                             dtype=torch.float32)
-        host_model = type(model)(**{k: float(v)
-                                    for k, v in vars(model).items()})
-        core = ("classic", "radial", "anamorphic", "anamorphic")[
-            stmap_mod._model_kind(model)]
-        for direction in ("distort", "undistort"):
-            for from_map in (False, True):
-                label = "%s %s %s" % (core, direction,
-                                      ("from-pixel", "from-map")[from_map])
-                registers = resources[label][0]
-                packed_registers, stack, spills = resources[
-                    label + " packed"]
-                if stack or spills:
-                    raise AssertionError("%s %s packed: a spill" % (
-                        tag, label))
-                source = stmap_mod.stmap_cuda(host_model, host_fb, *HD,
-                                              direction, device=device)
-                before = counters.copy()
-                if from_map:
-                    packed = stmap_mod.stmap_layer_cuda(
-                        source.clone(), model, fb, direction)
-                    by_value = stmap_mod.stmap_layer_cuda(
-                        source.clone(), host_model, host_fb, direction)
-
-                    def call(m, f, out=source.clone()):
-                        return stmap_mod.stmap_layer_cuda(out, m, f,
-                                                          direction)
-                else:
-                    packed = stmap_mod.stmap_cuda(model, fb, *HD, direction,
-                                                  device=device)
-                    by_value = source
-
-                    def call(m, f):
-                        return stmap_mod.stmap_cuda(m, f, *HD, direction,
-                                                    device=device)
-                if (counters["host_reads"] != before["host_reads"]
-                        or counters["stmap.device_packs"]
-                        != before["stmap.device_packs"] + 1):
-                    raise AssertionError("%s %s %s: a host read, or not one "
-                                         "pack" % (tag, name, label))
-                diff = float((packed - by_value).abs().max())
-                maps = [source.clone() for _ in range(TIMING_ROTATION)]
-                value_times = _kernel_device_ms(_raw_launch(
-                    host_model, host_fb, direction, maps, from_map))
-                packed_times = _kernel_device_ms(_packed_raw_launch(
-                    model, fb, direction, maps, from_map))
-                del maps
-                value_ms, _ = _one_kernel(value_times, "StmapParams)", tag)
-                kernel_ms, _ = _one_kernel(packed_times,
-                                           "StmapParams const*)", tag)
-                pack, _ = _one_kernel(packed_times, "pack_params_kernel",
-                                      tag)
-                pack_ms.append(pack)
-                packed_call = _cuda_ms(lambda: call(model, fb))
-                value_call = _cuda_ms(lambda: call(host_model, host_fb))
-                bound_ms, bound_by = stmap_bound(name, direction, *HD,
-                                                 from_map)
-                print("%s %-28s %-9s %-10s by value %.4f ms %2d registers | "
-                      "packed %.4f ms %2d registers, pack %.4f ms | wrapper "
-                      "call %.4f / %.4f ms | bound %.4f ms by %s (%.0f%% / "
-                      "%.0f%%) | max|diff| %.3g" % (
-                          tag, name, direction,
-                          ("from-pixel", "from-map")[from_map], value_ms,
-                          registers, kernel_ms, packed_registers, pack,
-                          value_call, packed_call, bound_ms, bound_by,
-                          100.0 * bound_ms / value_ms,
-                          100.0 * bound_ms / kernel_ms, diff))
-                if not kernel_ms >= bound_ms:
-                    raise AssertionError(
-                        "%s %s %s: %.4f ms is under the bound of %.4f ms" % (
-                            tag, name, label, kernel_ms, bound_ms))
-                if not diff <= 1e-6:
-                    raise AssertionError(
-                        "%s %s %s: the packed map is %g off the by-value "
-                        "one" % (tag, name, label, diff))
-    print("%s pack kernel %.4f-%.4f ms a launch (median %.4f)" % (
-        tag, min(pack_ms), max(pack_ms), statistics.median(pack_ms)))
 
 
 def _check_recovery(tag, attrs_out, result, codes):
@@ -3129,9 +2976,8 @@ def main():
 
     device = torch.device("cuda", 0)
     smi = phase_device()
-    built = phase_build()
+    phase_build()
     checked = phase_kernel_vs_plain(device)
-    phase_packed_vs_by_value(device, built)
 
     # Each main path's launches are counted from just before it to just
     # after.  Every path exports through the ST-map kernel; the stack

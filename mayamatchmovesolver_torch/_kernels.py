@@ -3,8 +3,9 @@
 Each kernel source in csrc/ has a plain C interface.  At first use it is
 compiled by nvcc into a shared library under build/kernels/ at the
 repository root, named by a hash of the source and the flags, and loaded
-with ctypes.  Nothing is built at import time, and nothing here calls
-torch: the callers pass device pointers and the stream as integers.
+with ctypes.  Nothing is built at import time.  The callers pass device
+pointers and the stream as integers; launch calls an entry point with the
+tensors' device current and turns its CUDA error code into an exception.
 """
 
 import ctypes
@@ -15,6 +16,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 from mayamatchmovesolver_torch.models.base import DISTORT_INVERSE_ITERATIONS
 
@@ -100,34 +103,12 @@ def load(name):
 def stmap_functions():
     """(mmsolver_stmap, mmsolver_stmap_layer) from csrc/stmap.cu, with
     their C signatures set.  Both take the map's device pointer, width,
-    height, core id, distort flag, the host parameter floats and the
-    stream, and return the launch's CUDA error code."""
+    height, distort flag, the number of layers, their model kinds and
+    their fields' records (host memory), the device buffer the pack
+    kernel writes the parameters to and the stream, and return the
+    launches' CUDA error code."""
     lib = load("stmap")
     functions = (lib.mmsolver_stmap, lib.mmsolver_stmap_layer)
-    for fn in functions:
-        fn.argtypes = [
-            ctypes.c_void_p,  # map (device, float4 per pixel)
-            ctypes.c_int,  # width
-            ctypes.c_int,  # height
-            ctypes.c_int,  # core id
-            ctypes.c_int,  # distort
-            ctypes.c_void_p,  # host parameter floats
-            ctypes.c_void_p,  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-    return functions
-
-
-@functools.lru_cache(maxsize=None)
-def stmap_packed_functions():
-    """(mmsolver_stmap_packed, mmsolver_stmap_layer_packed) from
-    csrc/stmap.cu, with their C signatures set.  Both take the map's
-    device pointer, width, height, distort flag, the number of layers,
-    their model kinds and their fields' records (host memory), the device
-    buffer the pack kernel writes the parameters to and the stream, and
-    return the launches' CUDA error code."""
-    lib = load("stmap")
-    functions = (lib.mmsolver_stmap_packed, lib.mmsolver_stmap_layer_packed)
     for fn in functions:
         fn.argtypes = [
             ctypes.c_void_p,  # map (device, float4 per pixel)
@@ -169,3 +150,18 @@ def warp_function():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(device, function, *args):
+    """function(*args), a C entry point of csrc/ that launches on a stream
+    of the CUDA `device`, with that device current (a kernel launches on
+    the current device).  Raises RuntimeError where it returns a CUDA
+    error code other than 0."""
+    if device.index == torch.cuda.current_device():
+        err = function(*args)
+    else:
+        with torch.cuda.device(device):
+            err = function(*args)
+    if err != 0:
+        raise RuntimeError("%s failed: CUDA error %d" % (function.__name__,
+                                                         err))

@@ -5,29 +5,22 @@
 // samples the other image, for the four 3DE models, and write the RGBA
 // float32 ST-map texel [S, T, B, A].  Two variants of one kernel:
 //
-//   mmsolver_stmap        the point comes from the pixel index and the
-//                         texel [S, T, 0, 1] is written (reads nothing);
-//   mmsolver_stmap_layer  the point is (S, T) of the thread's own texel
-//                         of a previous layer's map, which is mapped in
-//                         place; B and A carry through.  The reference
-//                         leaves a lens stack's further layers to XLA;
-//                         here they stay out of eager PyTorch.
+//   mmsolver_stmap        the first layer's point comes from the pixel
+//                         index and the texel [S, T, 0, 1] is written
+//                         (reads nothing); every further layer maps the
+//                         map in place;
+//   mmsolver_stmap_layer  every layer's point is (S, T) of the thread's
+//                         own texel of a previous layer's map, which is
+//                         mapped in place; B and A carry through.  The
+//                         reference leaves a lens stack's further layers
+//                         to XLA; here they stay out of eager PyTorch.
 //
-// Each takes the lens's parameters in one of two ways:
-//
-//   by value              the host has folded them into PARAM_COUNT
-//                         floats (ops/stmap.py::_pack_params), which
-//                         travel in the kernel's argument;
-//   packed on the device  mmsolver_stmap_packed and
-//                         mmsolver_stmap_layer_packed take the lens's
-//                         fields as device addresses (a lens held in
-//                         tensors on the card) or host doubles; one
-//                         launch of pack_params_kernel folds them in
-//                         float64, as the host would, into a device
-//                         buffer, and each map launch that follows reads
-//                         its layer's floats from there.  Nothing is
-//                         read back to the host, so the host never waits
-//                         for the card before a map.
+// Both take the lens as its fields (ops/stmap.py::_field_records): each
+// a device address (a lens held in tensors on the card) or a host double.
+// One launch of pack_params_kernel folds them in float64 into PARAM_COUNT
+// floats a layer in a device buffer, and each map launch that follows
+// reads its layer's floats from there.  Nothing is read back to the host,
+// so the host never waits for the card before a map.
 //
 // Every model's undistort is  post @ core(pre @ xy)  in diagonally
 // normalised (dn) coordinates, with a polynomial `core` and constant 2x2
@@ -45,10 +38,10 @@
 // kernel that multiplies no matrices.
 //
 // What the design does about it: only the arithmetic the map needs.
-//   * The host (ops/stmap.py) folds everything around the core into two
+//   * pack_params_kernel folds everything around the core into two
 //     affine maps in float64: source point (pixel index, or unit S and T)
 //     -> core input, and core output -> unit texel.  Two FMAs a component,
-//     no division in the kernel.
+//     no division in the map kernel.
 //   * Every core is  core(x, y) = (x, y) + h(x, y)  with h a polynomial
 //     without a constant term (the anamorphic one as well: with
 //     d = x2 - y2,  cos2*r2 = d  and  cos4*r4 = 2*d*d - r4,  so the
@@ -61,23 +54,19 @@
 //   * The iteration count is a compile-time constant
 //     (-DMMSOLVER_DISTORT_ITERATIONS, from models/base.py), so the loop
 //     unrolls: no counter, compare or branch.
-//   * Coefficients arrive in the kernel's argument, so every FMA takes its
-//     coefficient straight from the constant bank; packed on the device,
-//     each thread loads them once into registers instead, and a distort
-//     thread maps four pixels (distort_texels).
-//   * One thread a pixel, 32x8 blocks with threadIdx.x along the width: a
-//     warp's loads and stores are 512 contiguous bytes as one float4 a
-//     thread; the ragged edge is masked here.  By value a thread keeps to
-//     one pixel: at about 20 registers an SM holds 64 warps, which cover the
-//     dependent FMA chain, and the SASS opcode count times the
-//     pixels accounts for the time measured (PERF.md), so the lanes'
-//     rate, not latency or the last wave, is what is left.
+//   * Each thread loads the coefficients once into registers, and a
+//     distort thread maps DISTORT_PIXELS pixels (distort_texels).
+//   * 32x8 blocks with threadIdx.x along the width: a warp's loads and
+//     stores are 512 contiguous bytes as one float4 a thread; the ragged
+//     edge is masked here.  An undistort thread maps one pixel; at 28-32
+//     registers an SM holds enough warps to cover the dependent FMA
+//     chain, and the SASS opcode count times the pixels accounts for the
+//     time measured (PERF.md), so the lanes' rate or the bytes, not
+//     latency or the last wave, is what is left.
 // No --use_fast_math: the result stays within 2e-5 of the plain PyTorch
 // version.
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #ifndef MMSOLVER_DISTORT_ITERATIONS
 #error "build with -DMMSOLVER_DISTORT_ITERATIONS=<DISTORT_INVERSE_ITERATIONS of models/base.py>"
@@ -91,8 +80,8 @@ constexpr int BLOCK_W = 32;
 constexpr int BLOCK_H = 8;
 constexpr int MAX_COEFFS = 10;
 constexpr int PARAM_COUNT = MAX_COEFFS + 12;
-// Pixels a thread of a packed distort kernel maps (distort_texels).
-constexpr int PACKED_DISTORT_PIXELS = 4;
+// Pixels a thread of a distort kernel maps (distort_texels).
+constexpr int DISTORT_PIXELS = 4;
 
 struct StmapParams {
   float c[MAX_COEFFS];  // core coefficients, model-specific order
@@ -101,6 +90,8 @@ struct StmapParams {
   float a_out[4];       // row-major 2x2 and offset: core -> unit texel
   float b_out[2];
 };
+static_assert(sizeof(StmapParams) == PARAM_COUNT * sizeof(float),
+              "StmapParams is PARAM_COUNT packed floats");
 
 // (ox, oy) = (ax, ay) + h(x, y), or with NEG (ax, ay) - h(x, y), where
 // core(x, y) = (x, y) + h(x, y).  The sign rides on an FMA operand.
@@ -206,10 +197,10 @@ __device__ __forceinline__ void map_texel(float4* __restrict__ map,
 // Distort's texels for a thread that holds the parameters in registers:
 // PIXELS pixels, BLOCK_W columns apart in a tile PIXELS * BLOCK_W wide,
 // their fixed points stepped side by side.  Every FMA of the core reads
-// three registers then, not two and the constant bank: at one pixel a
-// thread the distort kernels, bound by their issue rate, ran 9-17%
-// slower than by value; at four they run within 2% of it, at 31-48
-// registers (PERF.md).  A column past the ragged edge repeats the last
+// three registers: at one pixel a thread the distort kernels, bound by
+// their issue rate, ran 9-17% slower than with the coefficients in the
+// constant bank; at four they run within 2% of that, at 31-48 registers
+// (PERF.md).  A column past the ragged edge repeats the last
 // one and is not written.
 template <int CORE, bool FROM_MAP, int PIXELS>
 __device__ __forceinline__ void distort_texels(float4* __restrict__ map,
@@ -264,25 +255,6 @@ __device__ __forceinline__ void distort_texels(float4* __restrict__ map,
   }
 }
 
-// Pixels a thread maps: PACKED_DISTORT_PIXELS in the distort kernels
-// that read their parameters from device memory, one elsewhere.
-template <bool DISTORT, typename Params>
-struct PixelsPerThread {
-  static constexpr int value =
-      (DISTORT && !std::is_same<Params, StmapParams>::value)
-          ? PACKED_DISTORT_PIXELS
-          : 1;
-};
-
-// The parameters in the kernel's argument: every FMA takes its
-// coefficient from the constant bank.
-template <int CORE, bool DISTORT, bool FROM_MAP>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
-    stmap_kernel(float4* __restrict__ map, int width, int height,
-                 const StmapParams p) {
-  map_texel<CORE, DISTORT, FROM_MAP>(map, width, height, p);
-}
-
 // The parameters in device memory, where pack_params_kernel wrote them:
 // each thread loads the same 88 bytes once, as 8-byte loads through the
 // read-only path (the first warps bring them into L1), into registers.
@@ -300,8 +272,7 @@ __global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
     to[2 * i + 1] = pair.y;
   }
   if (DISTORT) {
-    distort_texels<CORE, FROM_MAP, PACKED_DISTORT_PIXELS>(map, width, height,
-                                                          p);
+    distort_texels<CORE, FROM_MAP, DISTORT_PIXELS>(map, width, height, p);
   } else {
     map_texel<CORE, DISTORT, FROM_MAP>(map, width, height, p);
   }
@@ -310,12 +281,12 @@ __global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
 // ---------------------------------------------------------------------
 // The lens parameters packed on the device.  Where a lens is given as
 // tensors on the card (a solved lens, or models made there), the host
-// does not read them back: pack_params_kernel does in float64 what
-// ops/stmap.py::_model_kernel_config and _pack_params do on the host, one
+// does not read them back: pack_params_kernel folds them in float64, one
 // thread a layer, and writes each layer's PARAM_COUNT floats, rounded
-// once to float32, in StmapParams order; the map kernel's second overload
-// reads them.  Its inputs are the fields themselves, each a device
-// address of a one-element float or double tensor, or a host double.
+// once to float32, in StmapParams order; the map kernel reads them.  Its
+// inputs are the fields themselves, each a device address of a
+// one-element float or double tensor, or a host double.  The CPU tests
+// hold a transcription of it (tests/test_torch/_torch_stmap_emulation.py).
 
 enum Model {
   TDE_CLASSIC = 0,
@@ -390,8 +361,8 @@ __global__ void __launch_bounds__(PACK_THREADS)
   const double* v = values + FILM_BACK_FIELDS + layer * MODEL_FIELDS;
   const double deg2rad = 3.14159265358979323846 / 180.0;
 
-  // _model_kernel_config: the core's coefficients and the matrices
-  // around it, undistort(xy) = post @ core(pre @ xy).
+  // The core's coefficients and the matrices around it,
+  // undistort(xy) = post @ core(pre @ xy).
   double c[MAX_COEFFS] = {};
   const Mat2 identity = {1.0, 0.0, 0.0, 1.0};
   Mat2 pre = identity, post = identity;
@@ -436,7 +407,7 @@ __global__ void __launch_bounds__(PACK_THREADS)
     pre = inverse2(matmul2({x_scale, 0.0, 0.0, 1.0}, rot));
   }
 
-  // _pack_params: both affine maps folded around the core.
+  // Both affine maps folded around the core.
   Mat2 m_in = pre, m_out = post;
   if (args.distort) {
     m_in = inverse2(post);
@@ -470,28 +441,28 @@ __global__ void __launch_bounds__(PACK_THREADS)
   for (int i = 0; i < PARAM_COUNT; ++i) to[i] = (float)packed[i];
 }
 
-// One launch of stmap_kernel<CORE, DISTORT, FROM_MAP> over the map; `p`
-// is the parameters (StmapParams) or their device address.
-template <int CORE, bool FROM_MAP, typename Params>
+// One launch of stmap_kernel<CORE, DISTORT, FROM_MAP> over the map, whose
+// parameters are at the device address `p`.
+template <int CORE, bool FROM_MAP>
 void launch_core(float4* map, int width, int height, bool distort,
-                 const Params& p, cudaStream_t stream) {
+                 const StmapParams* p, cudaStream_t stream) {
   dim3 block(BLOCK_W, BLOCK_H);
   if (distort) {
-    constexpr int tile = PixelsPerThread<true, Params>::value * BLOCK_W;
+    constexpr int tile = DISTORT_PIXELS * BLOCK_W;
     dim3 grid((width + tile - 1) / tile, (height + BLOCK_H - 1) / BLOCK_H);
     stmap_kernel<CORE, true, FROM_MAP>
         <<<grid, block, 0, stream>>>(map, width, height, p);
   } else {
-    constexpr int tile = PixelsPerThread<false, Params>::value * BLOCK_W;
-    dim3 grid((width + tile - 1) / tile, (height + BLOCK_H - 1) / BLOCK_H);
+    dim3 grid((width + BLOCK_W - 1) / BLOCK_W,
+              (height + BLOCK_H - 1) / BLOCK_H);
     stmap_kernel<CORE, false, FROM_MAP>
         <<<grid, block, 0, stream>>>(map, width, height, p);
   }
 }
 
-template <bool FROM_MAP, typename Params>
+template <bool FROM_MAP>
 void launch_map(float4* map, int width, int height, int core_id,
-                bool distort, const Params& p, cudaStream_t stream) {
+                bool distort, const StmapParams* p, cudaStream_t stream) {
   switch (core_id) {
     case CLASSIC:
       launch_core<CLASSIC, FROM_MAP>(map, width, height, distort, p, stream);
@@ -507,38 +478,19 @@ void launch_map(float4* map, int width, int height, int core_id,
   }
 }
 
-// `host_params` points to PARAM_COUNT host floats laid out as
-// StmapParams.  Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for an unknown core, a bad size or
-// a null pointer.
-template <bool FROM_MAP>
-int launch(void* map, int width, int height, int core_id, int distort,
-           const float* host_params, void* stream) {
-  if (map == nullptr || host_params == nullptr || width <= 0 ||
-      height <= 0 || core_id < 0 || core_id > ANAMORPHIC_DEG4) {
-    return (int)cudaErrorInvalidValue;
-  }
-  static_assert(sizeof(StmapParams) == PARAM_COUNT * sizeof(float),
-                "StmapParams is PARAM_COUNT packed floats");
-  StmapParams p;
-  float* fields = reinterpret_cast<float*>(&p);
-  for (int i = 0; i < PARAM_COUNT; ++i) fields[i] = host_params[i];
-  launch_map<FROM_MAP>(static_cast<float4*>(map), width, height, core_id,
-                       distort != 0, p, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
-
 // The pack launch for `layers` layers, then one map launch a layer, each
 // reading its own PARAM_COUNT floats of `params`; the first from the
 // pixel index unless FROM_MAP, every further one from the map.
 // `fields` holds FILM_BACK_FIELDS Field records, then MODEL_FIELDS a
 // layer; `kinds` a Model a layer; both are host memory, read before this
 // returns.  `params` is device memory for layers * PARAM_COUNT floats,
-// 8-byte aligned.  Returns as launch does.
+// 8-byte aligned.  Returns cudaGetLastError() after the launches (0 =
+// launched), or cudaErrorInvalidValue for a bad size, layer count or
+// kind, a null pointer or a misaligned `params`.
 template <bool FROM_MAP>
-int launch_packed(void* map, int width, int height, int distort,
-                  int layers, const int* kinds, const Field* fields,
-                  float* params, void* stream) {
+int launch(void* map, int width, int height, int distort, int layers,
+           const int* kinds, const Field* fields, float* params,
+           void* stream) {
   if (map == nullptr || kinds == nullptr || fields == nullptr ||
       params == nullptr || width <= 0 || height <= 0 || layers < 1 ||
       layers > PACK_LAYERS ||
@@ -579,49 +531,28 @@ int launch_packed(void* map, int width, int height, int distort,
 
 }  // namespace
 
-// Plain C entry points for ctypes.  All four launch on `stream`,
-// allocate nothing and do not synchronise.
+// Plain C entry points for ctypes.  Both take the lens as Field records
+// (see launch), launch the pack kernel once for up to PACK_LAYERS layers,
+// then the map kernel a layer, reading the parameters from `params`; they
+// launch on `stream`, allocate nothing and do not synchronise.
 
 // Writes height*width float4 texels [S, T, 0, 1] to the device pointer
-// `out`; the source point is the pixel index (col, row).
-extern "C" int mmsolver_stmap(void* out, int width, int height, int core_id,
-                              int distort, const float* host_params,
+// `out` with the first layer, whose source point is the pixel index
+// (col, row), and maps them in place with each further one.
+extern "C" int mmsolver_stmap(void* out, int width, int height, int distort,
+                              int layers, const int* kinds,
+                              const void* fields, float* params,
                               void* stream) {
-  return launch<false>(out, width, height, core_id, distort, host_params,
-                       stream);
+  return launch<false>(out, width, height, distort, layers, kinds,
+                       static_cast<const Field*>(fields), params, stream);
 }
 
 // Maps the height*width float4 texels at the device pointer `map` in
-// place; the source point is each texel's own (S, T).
+// place with every layer; the source point is each texel's own (S, T).
 extern "C" int mmsolver_stmap_layer(void* map, int width, int height,
-                                    int core_id, int distort,
-                                    const float* host_params, void* stream) {
-  return launch<true>(map, width, height, core_id, distort, host_params,
-                      stream);
-}
-
-// The same two with the lens given as Field records (see launch_packed):
-// each launches the pack kernel once for up to PACK_LAYERS layers, then
-// the map kernel a layer, reading the parameters from `params`.
-
-// Writes the map from the pixel index with the first layer and maps it
-// in place with each further one.
-extern "C" int mmsolver_stmap_packed(void* out, int width, int height,
-                                     int distort, int layers,
-                                     const int* kinds, const void* fields,
-                                     float* params, void* stream) {
-  return launch_packed<false>(out, width, height, distort, layers, kinds,
-                              static_cast<const Field*>(fields), params,
-                              stream);
-}
-
-// Maps the texels at `map` in place with every layer.
-extern "C" int mmsolver_stmap_layer_packed(void* map, int width, int height,
-                                           int distort, int layers,
-                                           const int* kinds,
-                                           const void* fields, float* params,
-                                           void* stream) {
-  return launch_packed<true>(map, width, height, distort, layers, kinds,
-                             static_cast<const Field*>(fields), params,
-                             stream);
+                                    int distort, int layers,
+                                    const int* kinds, const void* fields,
+                                    float* params, void* stream) {
+  return launch<true>(map, width, height, distort, layers, kinds,
+                      static_cast<const Field*>(fields), params, stream);
 }

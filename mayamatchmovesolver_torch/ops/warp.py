@@ -61,17 +61,6 @@ def _launch_args(image, stmap, out):
             torch.cuda.current_stream(image.device).cuda_stream)
 
 
-def _launch(image, stmap, out):
-    """One launch of mmsolver_warp on the tensors' CUDA device."""
-    if image.device.index != torch.cuda.current_device():
-        with torch.cuda.device(image.device):
-            return _launch(image, stmap, out)
-    with profiler.kernel_op("mmsolver_warp"):
-        err = _kernels.warp_function()(*_launch_args(image, stmap, out))
-    if err != 0:
-        raise RuntimeError("warp kernel launch failed: CUDA error %d" % err)
-
-
 def _warp_cuda(image, stmap):
     """warp_image by the kernel (csrc/warp.cu): the image (H, W, C >= 1)
     and the map (H', W', >= 2) on one CUDA device, both float32 or both
@@ -98,7 +87,9 @@ def _warp_cuda(image, stmap):
                          % _INT_MAX)
     out = torch.empty((stmap.shape[0], stmap.shape[1], image.shape[2]),
                       dtype=image.dtype, device=image.device)
-    _launch(image, stmap, out)
+    with profiler.kernel_op("mmsolver_warp"):
+        _kernels.launch(image.device, _kernels.warp_function(),
+                        *_launch_args(image, stmap, out))
     profiler.counters["warp.launches"] += 1
     return out
 

@@ -30,8 +30,8 @@ The program's own instrumentation lives here too, one of each kind:
               "warp.launches" (kernel launches of ops/warp.py's),
               "host_reads" (device-to-host transfers of
               ops/stmap.py::_host_values) and "stmap.device_packs"
-              (launches of csrc/stmap.cu's pack kernel, which packs a
-              lens held on the card where it lies).
+              (launches of csrc/stmap.cu's pack kernel, which folds a
+              lens's fields on the card before its map launches).
 """
 
 import collections

@@ -1,15 +1,142 @@
-"""csrc/stmap.cu's arithmetic in float32 numpy.
+"""csrc/stmap.cu's arithmetic on the CPU: its pack kernel in Python
+floats (float64) and its map kernel in float32 numpy.
 
-The CUDA kernels cannot run on the CPU; this transcription of their
-per-pixel code, step for step, lets the CPU tests hold the host-side
-parameter packing and the kernels' arithmetic to the plain versions.  It
-has to change together with csrc/stmap.cu.
+The CUDA kernels cannot run on the CPU; these transcriptions of
+pack_params_kernel (the lens's fields folded into the 22 floats a layer)
+and of the map kernel's per-pixel code, step for step, let the CPU tests
+hold the kernels' arithmetic, fed the fields as the wrapper hands them
+(ops/stmap.py::_lens_fields), to the plain versions.  They have to
+change together with csrc/stmap.cu.
 """
+
+import math
 
 import numpy as np
 
 import mayamatchmovesolver_torch.models as t_models
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
+
+# csrc/stmap.cu's Core and Model enums.
+CLASSIC, RADIAL_DEG4, ANAMORPHIC_DEG4 = 0, 1, 2
+TDE_ANAMORPHIC_DEG4_RESCALED = 3
+MAX_COEFFS = 10
+DEG2RAD = math.pi / 180.0
+
+# 2x2 matrices are ((m00, m01), (m10, m11)) of Python floats, the
+# kernel's row-major Mat2.
+IDENTITY2 = ((1.0, 0.0), (0.0, 1.0))
+
+
+def matmul2(a, b):
+    (a00, a01), (a10, a11) = a
+    (b00, b01), (b10, b11) = b
+    return ((a00 * b00 + a01 * b10, a00 * b01 + a01 * b11),
+            (a10 * b00 + a11 * b10, a10 * b01 + a11 * b11))
+
+
+def inverse2(m):
+    (a, b), (c, d) = m
+    det = a * d - b * c
+    return ((d / det, -b / det), (-c / det, a / det))
+
+
+def cylindric_matrix(phi_deg, b):
+    """The radial model's post matrix, as pack_params_kernel makes it."""
+    q = math.sqrt(1.0 + b)
+    c, s = math.cos(phi_deg * DEG2RAD), math.sin(phi_deg * DEG2RAD)
+    m01 = (q - 1.0 / q) * c * s
+    return ((c * c * q + s * s / q, m01), (m01, c * c / q + s * s * q))
+
+
+def anamorphic_matrices(lens_rotation, squeeze_x, squeeze_y, pixel_aspect,
+                        rescale=None):
+    """(A, B) with A = R(rot) @ Sx @ Sy [@ Rescale] @ Pa and
+    B = Pa [@ Rescale] @ R(rot), as pack_params_kernel makes them; the
+    rescale extender scales x only, like squeeze_x."""
+    c = math.cos(lens_rotation * DEG2RAD)
+    s = math.sin(lens_rotation * DEG2RAD)
+    rot = ((c, -s), (s, c))
+    x_scale = pixel_aspect if rescale is None else rescale * pixel_aspect
+    a = matmul2(rot, ((squeeze_x * x_scale, 0.0), (0.0, squeeze_y)))
+    b = matmul2(((x_scale, 0.0), (0.0, 1.0)), rot)
+    return a, b
+
+
+def kernel_config(kind, v, fb):
+    """(core, coefficients, pre, post) of pack_params_kernel for a layer
+    of Model `kind` with fields `v` (dataclass order) and film back
+    fields `fb` (width, height, offset x, y, pixel aspect):
+    undistort(xy) = post @ core(pre @ xy), the coefficients those of the
+    displacement polynomial h = core - identity."""
+    if kind == CLASSIC:
+        ld, sq, qu = v[0], v[1], v[4]
+        return (CLASSIC, [ld / sq, (ld + v[2]) / sq, ld + v[3], ld,
+                          qu / sq, qu], IDENTITY2, IDENTITY2)
+    if kind == RADIAL_DEG4:
+        return RADIAL_DEG4, list(v[:6]), IDENTITY2, cylindric_matrix(v[6],
+                                                                     v[7])
+    # cos(2 phi) * r^2 = d and cos(4 phi) * r^4 = 2 d^2 - r^4 with
+    # d = x^2 - y^2: the r^4 term takes c04 - c44, the d^2 term 2 c44.
+    coeffs = list(v[:4]) + [v[4] - v[8], v[5] - v[9], v[6], v[7],
+                            2.0 * v[8], 2.0 * v[9]]
+    a, b = anamorphic_matrices(
+        v[10], v[11], v[12], fb[4],
+        v[13] if kind == TDE_ANAMORPHIC_DEG4_RESCALED else None)
+    return ANAMORPHIC_DEG4, coeffs, inverse2(b), a
+
+
+def pack_params(kind, v, fb, distort, size):
+    """(core, the 22 float32) pack_params_kernel writes for a layer:
+    kernel_config's, both affine maps folded in float64 around the core,
+    rounded once.  `size` is (width, height) where the layer's source
+    point is the pixel index (col, row), None where it is (S, T) of a
+    previous layer's map:
+
+      core input  = a_in  @ source + b_in   (source -> unit -> dn -> m_in)
+      (S, T)      = a_out @ core output + b_out   (m_out -> dn -> unit)
+    """
+    core, coeffs, pre, post = kernel_config(kind, v, fb)
+    m_in, m_out = (inverse2(post), inverse2(pre)) if distort else (pre, post)
+    fbw, fbh, lcox, lcoy = fb[:4]
+    radius = math.hypot(fbw, fbh) * 0.5
+    # unit = source * scale + shift: a pixel's centre, or S and T as is.
+    if size is None:
+        scale_x = scale_y = 1.0
+        shift_x = shift_y = 0.0
+    else:
+        scale_x, scale_y = 1.0 / size[0], 1.0 / size[1]
+        shift_x, shift_y = 0.5 * scale_x, 0.5 * scale_y
+    # dn = source * dn_scale + dn_shift.
+    dn_scale_x, dn_scale_y = scale_x * fbw / radius, scale_y * fbh / radius
+    dn_shift_x = ((shift_x - 0.5) * fbw - lcox) / radius
+    dn_shift_y = ((shift_y - 0.5) * fbh - lcoy) / radius
+    (i00, i01), (i10, i11) = m_in
+    (o00, o01), (o10, o11) = m_out
+    to_s, to_t = radius / fbw, radius / fbh
+    frames = [
+        i00 * dn_scale_x, i01 * dn_scale_y, i10 * dn_scale_x,
+        i11 * dn_scale_y,
+        i00 * dn_shift_x + i01 * dn_shift_y,
+        i10 * dn_shift_x + i11 * dn_shift_y,
+        o00 * to_s, o01 * to_s, o10 * to_t, o11 * to_t,
+        0.5 + lcox / fbw, 0.5 + lcoy / fbh,
+    ]
+    params = coeffs + [0.0] * (MAX_COEFFS - len(coeffs)) + frames
+    return core, np.array(params, np.float32)
+
+
+def layer_fields(model, fb):
+    """(Model kind, the model's fields, the film back's five) as Python
+    floats, in the order the wrapper hands them to the pack kernel."""
+    values, _ = t_stmap._lens_fields(fb, [model])
+    values = [float(x) for x in values]
+    return t_stmap._model_kind(model), values[5:], values[:5]
+
+
+def kernel_params(model, fb, direction, size):
+    """pack_params of a torch model and film back (see pack_params)."""
+    kind, v, fb_values = layer_fields(model, fb)
+    return pack_params(kind, v, fb_values, direction == "distort", size)
 
 
 def _fma(a, b, c):
@@ -23,8 +150,8 @@ def _fma(a, b, c):
 def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
                     source=None):
     """csrc/stmap.cu's per-pixel arithmetic, transcribed step for step to
-    float32 numpy over the whole image, reading the same 22 host
-    parameters.  The point comes from the pixel index of a `size` =
+    float32 numpy over the whole image, reading the 22 parameters of
+    pack_params.  The point comes from the pixel index of a `size` =
     (width, height) image, or (FROM_MAP) from S and T of the (H, W, 4)
     map `source`, whose channels 2 and 3 carry through."""
     f = np.float32
@@ -36,12 +163,12 @@ def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
         sx, sy = (-x, -y) if neg else (x, y)
         x2, y2 = x * x, y * y
         r2 = x2 + y2
-        if core_id == t_stmap._CORE_CLASSIC:
+        if core_id == CLASSIC:
             r4 = r2 * r2
             gx = _fma(c[0], x2, _fma(c[1], y2, c[4] * r4))
             gy = _fma(c[2], x2, _fma(c[3], y2, c[5] * r4))
             return _fma(sx, gx, ax), _fma(sy, gy, ay)
-        if core_id == t_stmap._CORE_RADIAL_DEG4:
+        if core_id == RADIAL_DEG4:
             sxy = (sx + sx) * y
             g = r2 * _fma(c[3], r2, c[0])
             u, v = _fma(c[4], r2, c[1]), _fma(c[5], r2, c[2])
@@ -81,7 +208,7 @@ def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
 def emulated_map(model, fb, width, height, direction, source=None):
     """The map the kernel's arithmetic gives for a torch model: from the
     pixel index, or with `source` the layer variant on that map."""
-    core_id, params = t_stmap._kernel_params(
+    core_id, params = kernel_params(
         model, fb, direction, None if source is not None else (width, height))
     assert params.shape == (22,) and params.dtype == np.float32
     return _emulate_kernel(

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
+import _torch_stmap_emulation as emulation
 from _torch_stmap_models import MODELS, program_ranges, torch_model, weaker
 from mayamatchmovesolver_torch.solver import ba as t_ba
 from mayamatchmovesolver_torch.solver import checkpoint as t_checkpoint
@@ -225,18 +226,21 @@ LF_ANAMORPHIC = """LD_3DE4_Anamorphic_Rescaled_Degree_4 {
 def test_stmap_cuda_anamorphic_core_at_alexa_lf_open_gate(direction):
     """The kernel's anamorphic core at 4448 x 3096 with pixel aspect 1.8,
     the rotation and the rescale, from a lens file's models_at (Python
-    floats: one launch, no host read), against the plain version of the
-    same lens on the card in float32 and in float64."""
+    floats, the anamorphic cell's lens: one pack and one map launch, no
+    host read), against the plain version of the same lens on the card
+    in float32 and in float64; the same lens held in float64 tensors on
+    the card gives the same map."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from mayamatchmovesolver_torch.io import lensfile
 
     layers = lensfile.parse_string(LF_ANAMORPHIC)
     models, fb = layers.models_at(2), layers.film_back()
-    reads, launches = counters["host_reads"], counters["stmap.launches"]
+    before = counters.copy()
     got = t_stmap.stmap(models, fb, 4448, 3096, direction, device="cuda")
-    assert counters["host_reads"] == reads
-    assert counters["stmap.launches"] == launches + 1
+    for key, n in (("host_reads", 0), ("stmap.launches", 1),
+                   ("stmap.device_packs", 1)):
+        assert counters[key] == before[key] + n, key
     assert got.shape == (3096, 4448, 4)
     for dtype in (torch.float32, torch.float64):
         want = t_stmap.stmap_torch(models[0], fb, 4448, 3096, direction,
@@ -245,6 +249,12 @@ def test_stmap_cuda_anamorphic_core_at_alexa_lf_open_gate(direction):
     identity = t_stmap.stmap_torch(models[0].__class__(), fb, 4448, 3096,
                                    direction, device="cuda")
     assert float((got - identity).abs().max()) > 1e-3
+    on_card = [type(o)(**{k: torch.tensor(v, dtype=torch.float64,
+                                          device="cuda")
+                          for k, v in vars(o).items()})
+               for o in (models[0], fb)]
+    assert torch.equal(got, t_stmap.stmap_cuda(*on_card, 4448, 3096,
+                                               direction, device="cuda"))
 
 
 @pytest.mark.cuda
@@ -277,13 +287,10 @@ def test_stmap_layer_cuda_refuses_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_stmap_spans_and_counters_on_cuda():
     """Under a capture with spans on, each CUDA call of the ST-map wrapper
-    is a "stmap.call".  A lens held on the card is packed there: the call
-    holds only its launch (one counted pack a call, or a stack, and no
-    host read).  Handed the values, a call holds its packing and launch;
-    a lens of CPU tensors is read on the host, the call holding its read
-    (one counted host read), its packing and its launch, and a stack
-    reads once for its layers.  Each counts its map launches; a warp is
-    one "warp.call"."""
+    is a "stmap.call" holding its "stmap.launch": one counted pack a call,
+    or a stack, whether the lens is held on the card or in CPU tensors
+    (handed over by value), and no host read.  Each counts its map
+    launches; a warp is one "warp.call"."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from torch.profiler import ProfilerActivity, profile
@@ -296,11 +303,7 @@ def test_stmap_spans_and_counters_on_cuda():
     host_model, host_fb = torch_model("classic")
     host_radial, _ = torch_model("radial_deg4")
     before = counters.copy()
-    packed = [("stmap.call", None), ("stmap.launch", "stmap.call")]
-    call = [("stmap.call", None), ("stmap.host_read", "stmap.call"),
-            ("stmap.pack", "stmap.call"), ("stmap.launch", "stmap.call")]
-    given = t_stmap._host_values(fb, model)
-    reads = counters["host_reads"]
+    call = [("stmap.call", None), ("stmap.launch", "stmap.call")]
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def captured(fn):
@@ -314,32 +317,27 @@ def test_stmap_spans_and_counters_on_cuda():
 
     st_map, ranges = captured(lambda: t_stmap.stmap_cuda(
         model, fb, 64, 32, device="cuda"))
-    assert ranges == packed and packs() == 1
-    _, ranges = captured(lambda: t_stmap.stmap_cuda(
-        model, fb, 64, 32, device="cuda", host_values=given))
-    assert ranges == [call[0]] + call[2:] and packs() == 1
+    assert ranges == call and packs() == 1
     _, ranges = captured(lambda: t_stmap.stmap_layer_cuda(
         st_map, radial, fb))
-    assert ranges == packed and packs() == 2
+    assert ranges == call and packs() == 2
     _, ranges = captured(lambda: t_stmap.stmap_stack(
         [model, radial], fb, 64, 32, device="cuda"))
-    assert ranges == packed and packs() == 3
-    assert counters["host_reads"] == reads
+    assert ranges == call and packs() == 3
     _, ranges = captured(lambda: t_stmap.stmap_cuda(
         host_model, host_fb, 64, 32, device="cuda"))
-    assert ranges == call and counters["host_reads"] == reads + 1
+    assert ranges == call and packs() == 4
     _, ranges = captured(lambda: t_stmap.stmap_layer_cuda(
         st_map, host_radial, host_fb))
-    assert ranges == call and counters["host_reads"] == reads + 2
+    assert ranges == call and packs() == 5
     _, ranges = captured(lambda: t_stmap.stmap_stack(
         [host_model, host_radial], host_fb, 64, 32, device="cuda"))
-    inner = [(name, "stmap.call") for name, _ in call[:1] + call[2:]]
-    assert ranges == call[:2] + inner + inner
-    assert counters["host_reads"] == reads + 3 and packs() == 3
+    assert ranges == call and packs() == 6
+    assert counters["host_reads"] == before["host_reads"]
     image = torch.rand(32, 64, 4, device="cuda")
     _, ranges = captured(lambda: t_warp.warp_image(image, st_map))
     assert ranges == [("warp.call", None)]
-    assert counters["stmap.launches"] == before["stmap.launches"] + 5
+    assert counters["stmap.launches"] == before["stmap.launches"] + 4
     assert counters["stmap_layer.launches"] == (
         before["stmap_layer.launches"] + 4)
 
@@ -376,23 +374,24 @@ def _within_one_ulp(got, want):
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_device_pack_equals_the_host_pack(name, direction, source):
-    """csrc/stmap.cu's pack kernel writes the 22 floats _pack_params
-    computes on the host, to within one float32 ulp, from float32,
-    float64 and mixed fields, for the pixel index and the layer source."""
+    """csrc/stmap.cu's pack kernel writes the 22 floats of its float64
+    transcription on the host (_torch_stmap_emulation.pack_params), to
+    within one float32 ulp, from float32, float64 and mixed fields, for
+    the pixel index and the layer source."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     st_map = torch.zeros((1080, 1920, 4), device="cuda")
     size = (1920, 1080) if source == "pixels" else None
     for kind in ("float32", "float64", "mixed"):
         model, fb = _lens_fields(name, kind)
-        fb_values, values = t_stmap._host_values(fb, model)
-        _, want = t_stmap._pack_params(model, values, fb_values, direction,
-                                       size)
+        _, want = emulation.kernel_params(model, fb, direction, size)
         params = torch.full((t_stmap._PARAM_COUNT,), float("nan"),
                             device="cuda")
+        records = t_stmap._field_records(*t_stmap._lens_fields(fb, [model]),
+                                         st_map.device, [])
         function, args = t_stmap._packed_launch_args(
-            st_map, [model], fb, direction, size is not None,
-            params.data_ptr(), [])
+            st_map, [model], direction, size is not None, records,
+            params.data_ptr())
         assert function(*args) == 0
         got = params.cpu().numpy()
         assert _within_one_ulp(got, want), (kind, got, want)
@@ -401,14 +400,16 @@ def test_device_pack_equals_the_host_pack(name, direction, source):
 @pytest.mark.cuda
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 @pytest.mark.parametrize("name", list(MODELS))
-def test_device_packed_maps_match_by_value_and_plain(name, direction):
+def test_device_packed_maps_match_plain_and_the_emulation(name, direction):
     """A lens held on the card: stmap_cuda and stmap_layer_cuda pack it
     there (one pack and one map launch a call, no host read) and give the
-    by-value kernel's map within 1e-6 and the plain version's within
-    2e-5, for float32, float64 and mixed fields."""
+    plain version's map within 2e-5 and the CPU transcription of the
+    kernels' arithmetic (_torch_stmap_emulation) within 1e-6, for
+    float32, float64 and mixed fields, which hold the same numbers."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     names = list(MODELS)
+    emulated = None
     for kind in ("float32", "float64", "mixed"):
         model, fb = _lens_fields(name, kind)
         other, _ = _lens_fields(names[(names.index(name) + 1) % 4], kind)
@@ -424,32 +425,35 @@ def test_device_packed_maps_match_by_value_and_plain(name, direction):
         for key, n in (("stmap.device_packs", 3), ("stmap.launches", 2),
                        ("stmap_layer.launches", 1)):
             assert counters[key] == before[key] + n, (kind, key)
-        given = t_stmap._host_values(fb, model)
-        by_value = t_stmap.stmap_cuda(model, fb, 1001, 333, direction,
-                                      device="cuda", host_values=given)
-        layer_by_value = t_stmap.stmap_layer_cuda(
-            source.clone(), model, fb, direction, host_values=given)
         # The plain version of the same numbers, as Python floats: it
         # takes no lens of mixed dtypes.
-        fb_floats, floats = (type(o)(**v) for o, v in zip((fb, model),
-                                                           given))
+        fb_floats, floats = (type(o)(**{k: float(v) for k, v in
+                                        vars(o).items()})
+                             for o in (fb, model))
         plain = t_stmap.stmap_torch(floats, fb_floats, 1001, 333, direction,
                                     device="cuda")
         layer_plain = t_stmap.stmap_layer_torch(source, floats, fb_floats,
                                                 direction)
+        if emulated is None:
+            emulated = (emulation.emulated_map(floats, fb_floats, 1001, 333,
+                                               direction),
+                        emulation.emulated_map(floats, fb_floats, 1001, 333,
+                                               direction,
+                                               source=source.cpu().numpy()))
         torch.cuda.synchronize()
-        for a, b, tol in ((got, by_value, 1e-6), (got, plain, ATOL),
-                          (work, layer_by_value, 1e-6),
-                          (work, layer_plain, ATOL)):
-            assert float((a - b).abs().max()) <= tol, (kind, tol)
+        for a, b, tol in ((got, plain, ATOL), (work, layer_plain, ATOL),
+                          (got.cpu(), emulated[0], 1e-6),
+                          (work.cpu(), emulated[1], 1e-6)):
+            assert float((a - torch.as_tensor(b, device=a.device))
+                         .abs().max()) <= tol, (kind, tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 def test_stmap_stack_packs_once_for_its_layers(direction):
-    """A stack held on the card is one pack launch for up to eight
-    layers: two layers one, nine two; no host read; the map equals the
-    same stack read to the host and launched by value within 1e-6."""
+    """A stack is one pack launch for up to eight layers: two layers one,
+    nine two; no host read; a stack held on the card gives the same map
+    as the same stack in CPU tensors, handed over by value."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     lenses = [torch_model(n, device="cuda")[0] for n in MODELS]
@@ -458,20 +462,20 @@ def test_stmap_stack_packs_once_for_its_layers(direction):
     for layers, packs in ((lenses[:2], 1),
                           ([weaker(m, 0.1) for m in lenses * 2]
                            + [weaker(lenses[0], 0.1)], 2)):
-        before = counters.copy()
-        got = t_stmap.stmap_stack(layers, fb, 640, 360, direction,
-                                  device="cuda")
-        assert counters["host_reads"] == before["host_reads"]
-        for key, n in (("stmap.device_packs", packs), ("stmap.launches", 1),
-                       ("stmap_layer.launches", len(layers) - 1)):
-            assert counters[key] == before[key] + n, (len(layers), key)
         host = [type(m)(**{k: v.cpu() for k, v in vars(m).items()})
                 for m in layers]
-        want = t_stmap.stmap_stack(host, host_fb, 640, 360, direction,
-                                   device="cuda")
-        assert counters["host_reads"] == before["host_reads"] + 1
+        for stack, film_back in ((layers, fb), (host, host_fb)):
+            before = counters.copy()
+            got = t_stmap.stmap_stack(stack, film_back, 640, 360, direction,
+                                      device="cuda")
+            for key, n in (("host_reads", 0), ("stmap.device_packs", packs),
+                           ("stmap.launches", 1),
+                           ("stmap_layer.launches", len(layers) - 1)):
+                assert counters[key] == before[key] + n, (len(layers), key)
+            if stack is layers:
+                want = got
         torch.cuda.synchronize()
-        assert float((got - want).abs().max()) <= 1e-6, len(layers)
+        assert torch.equal(got, want), len(layers)
 
 
 @pytest.mark.cuda

@@ -206,12 +206,14 @@ def test_models_at_is_a_span_counts_and_reads_nothing():
             models = layers.models_at(2)
     assert program_ranges(prof.events()) == [("lensfile.models_at", None)]
     fb = layers.film_back()
-    # The ST-map wrapper's host half takes them as they are.
-    values = stmap._host_values(fb, *models)
-    assert values[0]["pixel_aspect"] == 1.8
-    core, params = stmap._kernel_params(models[0], fb, "distort",
-                                        (WIDTH, HEIGHT))
-    assert core == 2 and params.shape == (22,)
+    # The ST-map wrapper hands every field to the pack kernel by value,
+    # reading nothing.
+    values, devices = stmap._lens_fields(fb, models)
+    assert values[4] == 1.8 and devices == [None] * len(values)
+    records = stmap._field_records(values, devices, torch.device("cuda", 0),
+                                   [])
+    assert records == [x for v in values for x in (float(v), 0, 0, 0)]
+    assert stmap._model_kind(models[0]) == 3
     assert counters["lensfile.models_at"] == before["lensfile.models_at"] + 1
     assert counters["lensfile.layers"] == before["lensfile.layers"] + 1
     assert counters["host_reads"] == before["host_reads"]

@@ -1,19 +1,20 @@
-"""Where the ST-map wrapper packs a lens's kernel parameters, and what it
-hands csrc/stmap.cu's pack kernel when it packs them on the device.
+"""What the ST-map wrapper hands csrc/stmap.cu's pack kernel for a lens.
 
-The choice (ops/stmap.py::_packs_on_device) is a pure function of the
-fields' devices and the map's: the device where a field is a tensor on
-the map's CUDA device and none on another CUDA device, the host
-otherwise.  The pack kernel reads each model's fields in the order of
+The pack kernel reads each model's fields in the order of
 dataclasses.fields, padded to the same count, as csrc/stmap.cu's Field
-records: a tensor on the map's device by its element's address
-(checked here with CPU tensors and the CPU as the map's device, which
-only the records can take), a Python number or a tensor elsewhere by
-its value.  The kernel itself runs on the card:
-tests/test_torch/test_torch_cuda.py holds its floats to the host's.
-Imports nothing of jax.
+records.  How ops/stmap.py::_field_records makes each field's record
+follows from where the field lies and the map's device alone: a tensor
+on the map's device by its element's address (checked here with CPU
+tensors and the CPU, or a device named in a case, as the map's device:
+only the records take them), a Python number or a CPU tensor by its
+value, a tensor on another device by its value read in one transfer for
+all such fields.  _launch_packed hands those records to the C entry
+points through _kernels.launch, checked here with stand-ins.  The
+kernels themselves run on the card: tests/test_torch/test_torch_cuda.py
+holds their floats to the CPU transcription.  Imports nothing of jax.
 """
 
+import contextlib
 import dataclasses
 import struct
 
@@ -23,29 +24,47 @@ import torch
 import mayamatchmovesolver_torch.models as t_models
 import mayamatchmovesolver_torch.ops.stmap as t_stmap
 from _torch_stmap_models import MODELS, torch_model
+from mayamatchmovesolver_torch.utils.profiler import counters
 
 CPU = torch.device("cpu")
 CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
 
-# (field devices, map device, packed on the device).
+# (field devices, map device, each field's record: "v" its value, "a" the
+# address of its element, "r" its value read to the host with the other
+# "r" fields in one transfer).
 CHOICES = {
-    "python_numbers": ([None] * 10, CUDA0, False),
-    "cpu_tensors": ([CPU] * 10, CUDA0, False),
-    "cpu_tensors_and_numbers": ([CPU, None] * 5, CUDA0, False),
-    "on_the_map_device": ([CUDA0] * 10, CUDA0, True),
-    "on_it_and_numbers": ([CUDA0] * 5 + [None] * 5, CUDA0, True),
-    "on_it_and_cpu": ([CUDA0, CPU] * 5, CUDA0, True),
-    "one_field_on_it": ([None] * 9 + [CUDA1], CUDA1, True),
-    "on_another_card": ([CUDA1] * 10, CUDA0, False),
-    "on_two_cards": ([CUDA0] * 5 + [CUDA1] * 5, CUDA0, False),
-    "no_fields": ([], CUDA0, False),
+    "python_numbers": ([None] * 10, CUDA0, "v" * 10),
+    "cpu_tensors": ([CPU] * 10, CUDA0, "v" * 10),
+    "cpu_tensors_and_numbers": ([CPU, None] * 5, CUDA0, "v" * 10),
+    "on_the_map_device": ([CUDA0] * 10, CUDA0, "a" * 10),
+    "on_it_and_numbers": ([CUDA0] * 5 + [None] * 5, CUDA0, "a" * 5 + "v" * 5),
+    "on_it_and_cpu": ([CUDA0, CPU] * 5, CUDA0, "av" * 5),
+    "one_field_on_it": ([None] * 9 + [CUDA1], CUDA1, "v" * 9 + "a"),
+    "on_another_card": ([CUDA1] * 10, CUDA0, "r" * 10),
+    "on_two_cards": ([CUDA0] * 5 + [CUDA1] * 5, CUDA0, "a" * 5 + "r" * 5),
+    "no_fields": ([], CUDA0, ""),
 }
 
 
 @pytest.mark.parametrize("case", list(CHOICES))
 def test_packs_on_device_from_where_the_fields_lie(case):
+    """Each field's record from where it lies (the devices of the case;
+    the values CPU tensors, which stand in for a card's, or Python
+    numbers), and one read where any field lies on another card."""
     devices, map_device, want = CHOICES[case]
-    assert t_stmap._packs_on_device(devices, map_device) is want
+    values = [0.25 * i + 0.5 if d is None else torch.tensor(
+        0.25 * i + 0.5, dtype=(torch.float32, torch.float64)[i % 2])
+        for i, d in enumerate(devices)]
+    reads = counters["host_reads"]
+    records = t_stmap._field_records(values, devices, map_device, [])
+    assert counters["host_reads"] == reads + ("r" in want)
+    records = list(zip(*[iter(records)] * 4))
+    assert len(records) == len(want)
+    for i, (how, v, record) in enumerate(zip(want, values, records)):
+        if how == "a":
+            assert record == (0.0, v.data_ptr(), i % 2, 0), i
+        else:
+            assert record == (0.25 * i + 0.5, 0, 0, 0), i
 
 
 def test_lens_fields_in_the_order_the_pack_kernel_reads():
@@ -159,3 +178,75 @@ def test_field_records_pack_to_the_kernels_layout():
 def test_model_kind_refuses_what_has_no_kernel():
     with pytest.raises(TypeError, match="no CUDA ST-map kernel"):
         t_stmap._model_kind(t_models.Passthrough())
+
+
+@pytest.mark.parametrize("from_pixels", [True, False])
+@pytest.mark.parametrize("count", [1, 8, 9, 17])
+def test_launch_packed_hands_each_launch_its_records(monkeypatch, count,
+                                                     from_pixels):
+    """_launch_packed with stand-ins for the C entry points and a CPU map
+    (which only the stand-ins take): one launch for every _PACK_LAYERS
+    layers, each with the film back's records and its own layers', their
+    kinds and its slice of one parameter buffer; only the first from the
+    pixel index, and only where the map is made from it."""
+    calls = []
+    entries = ("mmsolver_stmap", "mmsolver_stmap_layer")
+    monkeypatch.setattr(t_stmap._kernels, "stmap_functions", lambda: entries)
+    monkeypatch.setattr(t_stmap._kernels, "launch",
+                        lambda device, function, *args: calls.append(
+                            (device, function, args)))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    names = list(MODELS)
+    layers = [torch_model(names[i % 4])[0] for i in range(count)]
+    _, fb = torch_model("classic")
+    st_map = torch.zeros(3, 5, 4)
+    before = counters.copy()
+    t_stmap._launch_packed(st_map, layers, fb, "undistort", from_pixels)
+    chunks = [layers[i:i + 8] for i in range(0, count, 8)]
+    assert len(calls) == len(chunks)
+    records = t_stmap._field_records(*t_stmap._lens_fields(fb, layers),
+                                     CPU, [])
+    params = calls[0][2][7]
+    for n, ((device, function, args), chunk) in enumerate(zip(calls,
+                                                              chunks)):
+        assert device == CPU
+        assert function == entries[not (from_pixels and n == 0)]
+        at = 4 * (5 + t_stmap._MODEL_FIELDS * 8 * n)
+        want = records[:4 * 5] + records[
+            at:at + 4 * t_stmap._MODEL_FIELDS * len(chunk)]
+        assert args[:5] == (st_map.data_ptr(), 5, 3, 0, len(chunk))
+        assert args[5] == struct.pack("<%di" % len(chunk), *[
+            t_stmap._model_kind(m) for m in chunk])
+        assert args[6] == t_stmap._records(len(chunk)).pack(*want)
+        assert args[7] == params + 4 * t_stmap._PARAM_COUNT * 8 * n
+        assert args[8] == 7
+    for key, n in (("stmap.device_packs", len(chunks)),
+                   ("stmap.launches", int(from_pixels)),
+                   ("stmap_layer.launches", count - from_pixels),
+                   ("host_reads", 0)):
+        assert counters[key] == before[key] + n, key
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_kernels_launch_makes_the_device_current_and_raises(monkeypatch,
+                                                            current):
+    """_kernels.launch, the ST map's and the warp's one launch helper,
+    with a stand-in C entry point: called with the map's device current,
+    entered only where another is current; a nonzero CUDA error code is
+    a RuntimeError naming the entry point."""
+    entered, calls = [], []
+
+    def mmsolver_stmap(*args):
+        calls.append(args)
+        return args[0]
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: (
+        entered.append(device) or contextlib.nullcontext()))
+    t_stmap._kernels.launch(CUDA1, mmsolver_stmap, 0, "x")
+    assert calls == [(0, "x")]
+    assert entered == ([] if current == CUDA1.index else [CUDA1])
+    with pytest.raises(RuntimeError,
+                       match="mmsolver_stmap failed: CUDA error 700"):
+        t_stmap._kernels.launch(CUDA1, mmsolver_stmap, 700)
