@@ -27,7 +27,9 @@ the port's main paths and checks what comes out:
     stack exported as ST maps (first layer through the kernel, second
     through its layer variant) and an HD image warped through the maps
     (one launch of the warp kernel a warp), the warp kernel timed
-    against its byte bound;
+    against its byte bound, and its half instantiation on a VENICE 2
+    8.6K half-float plate, through warp_image bit-equal to the plain
+    warp and counted in warp.half_launches, and timed;
   * phase 12: the shot's camera, bundles and focal length from nothing
     but its 2D tracks: api.execute of a Collection with SolverCamera
     (RANSAC relative pose, triangulation, resection, two Schur BAs), a
@@ -90,6 +92,9 @@ import torch
 TOL = 2e-5
 HD = (1920, 1080)
 RAGGED = (1001, 333)
+# Sony VENICE 2 8.6K 3:2 full frame, where phase 11 times the warp of a
+# half-float (ACES OpenEXR) plate.
+VENICE2 = (8640, 5760)
 
 # The shot: 120 frames of a moving camera, 64 tracked bundles, a 36x24
 # mm film back, 35 mm lens with 3DE classic distortion 0.08.
@@ -539,17 +544,22 @@ def _kernel_label(mangled):
 
 def _warp_label(mangled):
     """'float32 vec4 pair' from a warp_kernel<T, VEC4, PAIR>
-    instantiation's mangled name (csrc/warp.cu), None for another
-    symbol."""
+    instantiation's mangled name (csrc/warp.cu), 'float16 vec4 pair' or
+    'float16 scalar strided' from a warp_kernel<__half, PACKED> one, None
+    for another symbol."""
     import re
 
     found = re.search(r"warp_kernelI([fd])Lb(\d)ELb(\d)E", mangled)
-    if not found:
-        return None
-    dtype, vec4, pair = found.groups()
-    return "%s %s %s" % ({"f": "float32", "d": "float64"}[dtype],
-                         ("scalar", "vec4")[int(vec4)],
-                         ("strided", "pair")[int(pair)])
+    if found:
+        dtype, vec4, pair = found.groups()
+        return "%s %s %s" % ({"f": "float32", "d": "float64"}[dtype],
+                             ("scalar", "vec4")[int(vec4)],
+                             ("strided", "pair")[int(pair)])
+    found = re.search(r"warp_kernelI6__halfLb(\d)E", mangled)
+    if found:
+        return ("float16 scalar strided", "float16 vec4 pair")[
+            int(found.group(1))]
+    return None
 
 
 def kernel_resources(report, label=_kernel_label):
@@ -643,9 +653,9 @@ def phase_build():
     resources = kernel_resources(
         _kernels.resource_usage_path("warp").read_text(), _warp_label)
     counts = sass_counts(path, _warp_label)
-    if len(counts) != 5 or set(counts) != set(resources):
+    if len(counts) != 7 or set(counts) != set(resources):
         raise AssertionError(
-            "expected 5 warp_kernel instantiations, ptxas reports %d and "
+            "expected 7 warp_kernel instantiations, ptxas reports %d and "
             "the SASS holds %d" % (len(resources), len(counts)))
     for label in sorted(counts):
         ops = counts[label]
@@ -1406,7 +1416,60 @@ def phase_stack_and_warp(device, distortion):
             or not bool(warped.isfinite().all()) or not diff <= 1e-5
             or not moved > 1e-3):
         raise AssertionError("the lens warp left the CPU result")
+    check_half_warp(device, stack[0], fb)
     return stack, fb, image, one
+
+
+def _equal_bits(a, b):
+    """a and b have one dtype and shape and the same value at every
+    element, NaN where the other is NaN."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a),
+                            torch.where(b.isnan(), 0.0, b)))
+
+
+def check_half_warp(device, lens, fb):
+    """A VENICE 2 8.6K RGBA half plate through the lens's undistort map
+    by warp_image: one launch, of the half instantiation, and a float32
+    result bit-equal to _bilinear_sample on the same card tensors and to
+    the float32 instantiation on the plate widened to float32; then its
+    RGB view (strided taps) bit-equal to _bilinear_sample."""
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+    from mayamatchmovesolver_torch.ops import warp
+    from mayamatchmovesolver_torch.utils.profiler import counters
+
+    tag = "[11 half warp]"
+    width, height = VENICE2
+    gen = torch.Generator(device=device).manual_seed(11)
+    plate = torch.rand((height, width, 4), generator=gen, device=device,
+                       dtype=torch.float16)
+    st_map = stmap_mod.stmap(lens, fb, width, height, "undistort",
+                             device=device)
+    counters["warp.launches"] = counters["warp.half_launches"] = 0
+    warped = warp.warp_image(plate, st_map)
+    counted = (counters["warp.launches"], counters["warp.half_launches"])
+    finite = bool(warped.isfinite().all()) and warped.dtype == torch.float32
+    plain = warp._bilinear_sample(plate, st_map[..., 0], st_map[..., 1])
+    same_plain = _equal_bits(warped, plain)
+    del plain
+    widened = warp.warp_image(plate.float(), st_map)
+    same_float = _equal_bits(warped, widened)
+    del widened, warped
+    rgb = plate[..., :3]
+    warped = warp.warp_image(rgb, st_map)
+    same_strided = _equal_bits(
+        warped, warp._bilinear_sample(rgb, st_map[..., 0], st_map[..., 1]))
+    del warped, plate, rgb, st_map
+    print("%s %dx%dx4 float16 plate: launches %d (half %d); finite float32 "
+          "%s; bit-equal to _bilinear_sample %s, to the float32 kernel on "
+          "the widened plate %s; its RGB view (strided) to _bilinear_sample "
+          "%s" % (tag, width, height, counted[0], counted[1], finite,
+                  same_plain, same_float, same_strided))
+    if counted != (1, 1) or not (finite and same_plain and same_float
+                                 and same_strided):
+        raise AssertionError("the half warp at %dx%d left _bilinear_sample"
+                             % (width, height))
 
 
 def time_stack_and_warp(device, stack, fb, image, lens_map):
@@ -1447,6 +1510,26 @@ def time_stack_and_warp(device, stack, fb, image, lens_map):
         raise AssertionError("the warp kernel's %.4f ms is under the bound "
                              "of %.4f ms: the bound counts too much"
                              % (ms, bound_ms))
+    # The half instantiation on a VENICE 2 8.6K RGBA half plate through
+    # a float32 map into a float32 output: one warp moves 2 GB, forty
+    # times the L2, so two of each in turn.
+    width, height = VENICE2
+    images = [torch.rand((height, width, 4), dtype=torch.float16,
+                         device=device) for _ in range(2)]
+    maps = [stmap_mod.stmap(stack[0], fb, width, height, direction,
+                            device=device)
+            for direction in ("undistort", "distort")]
+    outs = [torch.empty((height, width, 4), device=device) for _ in range(2)]
+    ms = _cuda_ms(_raw_warp(images, maps, outs), launches=20)
+    bound_ms = warp_bound_ms(images[0], maps[0])
+    del images, maps, outs
+    print("[11 warp kernel] mmsolver_warp, %dx%dx4 float16 image: %.4f ms  "
+          "bound %.4f ms by bytes (%.0f%% of it)" % (
+              width, height, ms, bound_ms, 100.0 * bound_ms / ms))
+    if not ms >= bound_ms:
+        raise AssertionError("the half warp kernel's %.4f ms is under the "
+                             "bound of %.4f ms: the bound counts too much"
+                             % (ms, bound_ms))
 
 
 def _raw_warp(images, maps, outs):
@@ -1471,9 +1554,10 @@ def _raw_warp(images, maps, outs):
 def warp_bound_ms(image, st_map):
     """The least time one H100 could take for a warp: its bytes over the
     memory rate, each read once (the map, the image) and the output
-    written once; a few operations a pixel weigh nothing beside them."""
+    written once, in the map's dtype (a half image's output is float32);
+    a few operations a pixel weigh nothing beside them."""
     out_bytes = st_map.shape[0] * st_map.shape[1] * image.shape[2] * (
-        image.element_size())
+        st_map.element_size())
     moved = (st_map.numel() * st_map.element_size()
              + image.numel() * image.element_size() + out_bytes)
     return moved / H100_HBM_BYTES_PER_S * 1e3

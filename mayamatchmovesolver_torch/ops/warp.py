@@ -12,6 +12,13 @@ ST-map kernel (ops/stmap.py), with the reference's own gather arithmetic
                      _bilinear_sample.  There is no fallback: on CUDA the
                      kernel runs or the call raises.
 
+The image and the map are both float32, both float64, or a float16 image
+(a half-float plate) with a float32 map; the result takes their promoted
+dtype, float32 for the last, as _bilinear_sample's arithmetic does: each
+half tap is widened exactly, then blended in float32.  On a CUDA device
+the last pairing is the kernel's half instantiation, also counted in
+profiler.counters["warp.half_launches"].
+
 Conventions match the ST maps this package writes: an ST map pixel
 (s, t) holds the [0, 1] UV of the SOURCE sample for that destination
 pixel, v up, pixel centers at half-integers.
@@ -23,8 +30,12 @@ from mayamatchmovesolver_torch import _kernels
 from mayamatchmovesolver_torch.utils import profiler
 from mayamatchmovesolver_torch.utils.profiler import span
 
-# The dtype codes of csrc/warp.cu's mmsolver_warp.
-_DTYPES = {torch.float32: 0, torch.float64: 1}
+# csrc/warp.cu's mmsolver_warp: the dtype codes of the (image, map)
+# pairings it takes.
+_DTYPES = {(torch.float32, torch.float32): 0,
+           (torch.float64, torch.float64): 1,
+           (torch.float16, torch.float32): 2}
+_HALF = _DTYPES[torch.float16, torch.float32]
 # Sizes travel to the kernel as C ints.
 _INT_MAX = 2 ** 31 - 1
 
@@ -57,24 +68,29 @@ def _launch_args(image, stmap, out):
     tensors, which the caller keeps alive."""
     return (image.data_ptr(), *image.shape, *image.stride(),
             stmap.data_ptr(), *stmap.shape[:2], *stmap.stride(),
-            out.data_ptr(), _DTYPES[image.dtype],
+            out.data_ptr(), _DTYPES[image.dtype, stmap.dtype],
             torch.cuda.current_stream(image.device).cuda_stream)
 
 
 def _warp_cuda(image, stmap):
     """warp_image by the kernel (csrc/warp.cu): the image (H, W, C >= 1)
-    and the map (H', W', >= 2) on one CUDA device, both float32 or both
-    float64, at any strides; returns a new contiguous (H', W', C) tensor.
+    and the map (H', W', >= 2) on one CUDA device, both float32, both
+    float64, or a float16 image with a float32 map, at any strides;
+    returns a new contiguous (H', W', C) tensor of their promoted dtype
+    (torch.result_type, which is the map's in each of these pairings).
     Raises ValueError for anything else.  Each launch adds one to
-    profiler.counters["warp.launches"]."""
+    profiler.counters["warp.launches"], and one of the half instantiation
+    to profiler.counters["warp.half_launches"] too."""
     if not (image.is_cuda and stmap.is_cuda
             and image.device == stmap.device):
         raise ValueError("the CUDA warp needs the image and the map on one "
                          "CUDA device, got %s and %s"
                          % (image.device, stmap.device))
-    if image.dtype not in _DTYPES or stmap.dtype != image.dtype:
+    code = _DTYPES.get((image.dtype, stmap.dtype))
+    if code is None:
         raise ValueError("the CUDA warp takes a float32 or float64 image "
-                         "and a map of the same dtype, got %s and %s"
+                         "and a map of the same dtype, or a float16 image "
+                         "and a float32 map, got %s and %s"
                          % (image.dtype, stmap.dtype))
     if image.dim() != 3 or image.numel() == 0:
         raise ValueError("the image must be a non-empty (H, W, C), got %s"
@@ -86,11 +102,13 @@ def _warp_cuda(image, stmap):
         raise ValueError("a side of the image or the map exceeds %d"
                          % _INT_MAX)
     out = torch.empty((stmap.shape[0], stmap.shape[1], image.shape[2]),
-                      dtype=image.dtype, device=image.device)
+                      dtype=stmap.dtype, device=image.device)
     with profiler.kernel_op("mmsolver_warp"):
         _kernels.launch(image.device, _kernels.warp_function(),
                         *_launch_args(image, stmap, out))
     profiler.counters["warp.launches"] += 1
+    if code == _HALF:
+        profiler.counters["warp.half_launches"] += 1
     return out
 
 
@@ -99,10 +117,12 @@ def warp_image(image, stmap):
     semantics the maps are produced for), on the image's device.
 
     image: (H, W, C) float; stmap: (H', W', >=2) — channels 0/1 are the
-    source UV per destination pixel.  Returns (H', W', C).  On a CUDA
-    device this is one launch of the kernel (_warp_cuda), which raises
-    ValueError for what it does not take; elsewhere _bilinear_sample.
-    The call is the span "warp.call" (utils/profiler.py)."""
+    source UV per destination pixel.  Returns (H', W', C) in their
+    promoted dtype (a float16 image through a float32 map gives float32).
+    On a CUDA device this is one launch of the kernel (_warp_cuda), which
+    raises ValueError for what it does not take; elsewhere
+    _bilinear_sample.  The call is the span "warp.call"
+    (utils/profiler.py)."""
     with span("warp.call"):
         if image.is_cuda or stmap.is_cuda:
             return _warp_cuda(image, stmap)

@@ -27,7 +27,9 @@ The program's own instrumentation lives here too, one of each kind:
   counters    integers counted at the same boundaries, always on:
               "stmap.launches" and "stmap_layer.launches" (kernel
               launches of ops/stmap.py's two C entry points),
-              "warp.launches" (kernel launches of ops/warp.py's),
+              "warp.launches" (kernel launches of ops/warp.py's; those
+              of its half-image instantiation also in
+              "warp.half_launches"),
               "host_reads" (device-to-host transfers of
               ops/stmap.py::_host_values) and "stmap.device_packs"
               (launches of csrc/stmap.cu's pack kernel, which folds a

@@ -7,8 +7,9 @@ reparent) and its frame-sharded solvers (with no process group and under
 a one-rank NCCL group) on the card, a lens file's anamorphic map at
 ALEXA LF open-gate size, the ST-map wrapper's spans and
 counters there, the image warp's kernel (csrc/warp.cu) against the eager
-warp on the card and the float64 warp on the CPU at 1e-6, and the
-no-fallback rule.
+warp on the card and the float64 warp on the CPU at 1e-6 (a float16
+image through a float32 map too), a lens file's radial map at VENICE 2
+8.6K size, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -255,6 +256,51 @@ def test_stmap_cuda_anamorphic_core_at_alexa_lf_open_gate(direction):
                for o in (models[0], fb)]
     assert torch.equal(got, t_stmap.stmap_cuda(*on_card, 4448, 3096,
                                                direction, device="cuda"))
+
+
+VENICE2_RADIAL = """LD_3DE4_Radial_Standard_Degree_4 {
+ tde4_filmback_width_cm 3.59
+ tde4_filmback_height_cm 2.4
+ tde4_pixel_aspect 1
+ Distortion_Degree_2 {{curve x1001 -0.03 x1002 -0.042 }}
+ U_Degree_2 0.0008
+ V_Degree_2 -0.0006
+ Quartic_Distortion_Degree_4 {{curve x1001 0.004 x1002 0.006 }}
+ U_Degree_4 0.0002
+ V_Degree_4 -0.0002
+ Phi_Cylindric_Direction 8
+ B_Cylindric_Bending 0.003
+}
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_stmap_cuda_radial_core_at_venice2_full_frame(direction):
+    """The kernel's radial core (with the cylindric extender) at 8640 x
+    5760, from a lens file's models_at (Python floats: one pack and one
+    map launch, no host read), against the plain version of the same
+    lens on the card in float32 and in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.io import lensfile
+
+    layers = lensfile.parse_string(VENICE2_RADIAL)
+    models, fb = layers.models_at(1002), layers.film_back()
+    before = counters.copy()
+    got = t_stmap.stmap(models, fb, 8640, 5760, direction, device="cuda")
+    for key, n in (("host_reads", 0), ("stmap.launches", 1),
+                   ("stmap.device_packs", 1)):
+        assert counters[key] == before[key] + n, key
+    assert got.shape == (5760, 8640, 4)
+    for dtype in (torch.float32, torch.float64):
+        want = t_stmap.stmap_torch(models[0], fb, 8640, 5760, direction,
+                                   device="cuda", dtype=dtype)
+        assert float((got - want).abs().max()) < ATOL, dtype
+        del want
+    identity = t_stmap.stmap_torch(models[0].__class__(), fb, 8640, 5760,
+                                   direction, device="cuda")
+    assert float((got - identity).abs().max()) > 1e-3
 
 
 @pytest.mark.cuda
@@ -513,10 +559,11 @@ WARP_CASES = {
 }
 
 
-def _warp_inputs(case):
+def _warp_inputs(case, image_dtype=None):
     """The case's image and map on the card: UVs that reach 1.5 px past
     every edge of the image (where the clamped taps jump at every whole
-    pixel beyond the left and top edges) and one NaN UV."""
+    pixel beyond the left and top edges) and one NaN UV.  The image is
+    made in `image_dtype` where it is given, before the case's view."""
     image_shape, map_shape, view, dtype = WARP_CASES[case]
     rng = np.random.RandomState(sorted(WARP_CASES).index(case))
     height, width = image_shape[:2]
@@ -526,8 +573,8 @@ def _warp_inputs(case):
                                  map_shape[:2])
     st_map[..., 1] = rng.uniform(-1.5 / height, 1 + 1.5 / height,
                                  map_shape[:2])
-    image, st_map = (torch.as_tensor(a, dtype=dtype, device="cuda")
-                     for a in (image, st_map))
+    image = torch.as_tensor(image, dtype=image_dtype or dtype, device="cuda")
+    st_map = torch.as_tensor(st_map, dtype=dtype, device="cuda")
     if view == "map_columns":
         st_map = st_map[:, ::2]
     elif view == "map_channels":
@@ -567,6 +614,69 @@ def test_warp_kernel_matches_eager_and_float64(case):
     assert torch.equal(got.nan_to_num(), eager.nan_to_num())
     torch.testing.assert_close(got.cpu().double(), wide, rtol=0, atol=1e-6,
                                equal_nan=True)
+
+
+# The half instantiation's cases (a float16 image through a float32 map):
+# "rgba", "other_size", "uv_only" and "map_columns" take its packed path
+# (8-byte taps, a float2 UV), the others its strided one.
+HALF_WARP_CASES = [case for case, (_, _, _, dtype) in WARP_CASES.items()
+                   if dtype == torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HALF_WARP_CASES)
+def test_warp_kernel_on_a_half_image_is_the_eager_warp(case):
+    """A float16 image through a float32 map is one launch of the half
+    instantiation, counted in warp.half_launches: a float32 output equal,
+    bit for bit, to the eager _bilinear_sample of the same CUDA tensors
+    (each tap widened exactly, then the same roundings) and to the float32
+    instantiation on the image widened to float32; the float64 warp on
+    the CPU within float32's rounding of the blend."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    image, st_map = _warp_inputs(case, torch.float16)
+    before = counters.copy()
+    got = t_warp.warp_image(image, st_map)
+    assert counters["warp.launches"] == before["warp.launches"] + 1
+    assert counters["warp.half_launches"] == before["warp.half_launches"] + 1
+    wide = t_warp.warp_image(image.float(), st_map)
+    assert counters["warp.half_launches"] == before["warp.half_launches"] + 1
+    eager = t_warp._bilinear_sample(image, st_map[..., 0], st_map[..., 1])
+    plain = t_warp._bilinear_sample(image.cpu().double(),
+                                    st_map[..., 0].cpu(),
+                                    st_map[..., 1].cpu())
+    torch.cuda.synchronize()
+    assert eager.dtype == got.dtype == torch.float32 and got.is_contiguous()
+    assert got.shape == st_map.shape[:2] + image.shape[2:]
+    assert bool(got[3, 5].isnan().all())
+    for other in (eager, wide):
+        assert torch.equal(got.isnan(), other.isnan())
+        assert torch.equal(got.nan_to_num(), other.nan_to_num())
+    torch.testing.assert_close(got.cpu().double(), plain, rtol=0, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_warp_kernel_refuses_every_other_dtype_mix():
+    """Only float32 with float32, float64 with float64 and a float16
+    image with a float32 map reach the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    image, st_map = _warp_inputs("rgba")
+    before = counters.copy()
+    for image_dtype, map_dtype in (
+            (torch.float16, torch.float16), (torch.float16, torch.float64),
+            (torch.float32, torch.float16), (torch.float64, torch.float32),
+            (torch.float32, torch.float64), (torch.bfloat16, torch.float32),
+            (torch.bfloat16, torch.bfloat16), (torch.float16, torch.bfloat16)):
+        with pytest.raises(ValueError, match="a float16 image and a float32"):
+            t_warp.warp_image(image.to(image_dtype), st_map.to(map_dtype))
+    for key in ("warp.launches", "warp.half_launches"):
+        assert counters[key] == before[key], key
 
 
 @pytest.mark.cuda
