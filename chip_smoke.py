@@ -234,6 +234,13 @@ STMAP_FRAME_FLOPS = 16
 STMAP_STEP_FLOPS = {"TdeClassic": 18, "TdeRadialStdDeg4": 28,
                     "TdeAnamorphicStdDeg4": 26,
                     "TdeAnamorphicStdDeg4Rescaled": 26}
+# FP32 opcodes (FFMA + FMUL + FADD) a core evaluation compiles to in
+# csrc/stmap.cu, and the pixels a distort thread maps (its
+# DISTORT_PIXELS): phase 2 fails on a distort instantiation with more
+# than DISTORT_PIXELS * (8 + steps * opcodes a step), 8 the two affine
+# maps' FFMAs.
+STMAP_STEP_OPCODES = {"classic": 12, "radial": 13, "anamorphic": 15}
+STMAP_DISTORT_PIXELS = 4
 # The timed launches of phase 3 write (and, from a map, read) this many
 # maps in turn: 4 HD maps are 133 MB, so a map has left the card's 50 MB
 # L2 before its turn comes again and the memory bound applies.  Phase 11
@@ -542,6 +549,13 @@ def _kernel_label(mangled):
                          ("from-pixel", "from-map")[from_map])
 
 
+def _stmap_symbol_label(mangled):
+    """_kernel_label's, or 'pack_params_kernel' for the pack kernel."""
+    if "pack_params_kernel" in mangled:
+        return "pack_params_kernel"
+    return _kernel_label(mangled)
+
+
 def _warp_label(mangled):
     """'float32 vec4 pair' from a warp_kernel<T, VEC4, PAIR>
     instantiation's mangled name (csrc/warp.cu), 'float16 vec4 pair' or
@@ -580,12 +594,12 @@ def kernel_resources(report, label=_kernel_label):
     return out
 
 
-def sass_counts(library, label=_kernel_label):
-    """{label: {opcode: count}} of every stmap_kernel instantiation (or,
-    with `label` _warp_label, warp_kernel instantiation) in the built
-    library, by `cuobjdump -sass` (it ships with nvcc; it is an error if
-    it is missing)."""
-    import collections
+def sass_listings(library, label=_kernel_label):
+    """{label: [instruction, ...]} of every function of the built library
+    that `label` names (_kernel_label: the stmap_kernel instantiations;
+    _warp_label: the warp_kernel ones), by `cuobjdump -sass` (it ships
+    with nvcc; it is an error if it is missing): each instruction's text
+    and encoding without its address."""
     import os
     import re
     import shutil
@@ -597,26 +611,50 @@ def sass_counts(library, label=_kernel_label):
     sass = subprocess.run([cuobjdump, "-sass", str(library)],
                           capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    opcode = re.compile(
-        r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    address = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/")
     out, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             current = label(line)
             if current:
-                out[current] = collections.Counter()
-        elif current:
-            found = opcode.match(line)
-            if found:
-                out[current][found.group(1)] += 1
+                out[current] = []
+        elif current and address.match(line):
+            out[current].append(" ".join(address.sub("", line).split()))
+        elif current and out[current] and line.strip().startswith("/* 0x"):
+            # The second half of the encoding.
+            out[current][-1] += " " + line.strip()
     return out
+
+
+def sass_opcodes(instructions):
+    """{opcode: count} of a sass_listings entry (a predicate skipped)."""
+    import collections
+    import re
+
+    opcode = re.compile(r"^(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    return collections.Counter(
+        found.group(1) for found in map(opcode.match, instructions) if found)
+
+
+def sass_digest(instructions):
+    """The first 12 hex digits of the SHA-1 of a sass_listings entry: two
+    builds with the same digest compiled the kernel instruction for
+    instruction alike."""
+    import hashlib
+
+    return hashlib.sha1("\n".join(instructions).encode()).hexdigest()[:12]
 
 
 def phase_build():
     """Build csrc/stmap.cu and csrc/warp.cu, bind their entry points, and
     print what the compiler made of each kernel: registers, stack and
-    spills a thread (ptxas) and the SASS opcode counts (cuobjdump)."""
+    spills a thread (ptxas), the SASS opcode counts and a digest of the
+    SASS (cuobjdump); fail on a spill, a MUFU in a map kernel, or a
+    distort kernel with more FP32 opcodes than its steps compile to."""
     from mayamatchmovesolver_torch import _kernels
+    from mayamatchmovesolver_torch.models.base import (
+        DISTORT_INVERSE_ITERATIONS,
+    )
 
     t0 = time.perf_counter()
     path = _kernels.build("stmap")
@@ -625,26 +663,43 @@ def phase_build():
         path.name, time.perf_counter() - t0, " ".join(_kernels.NVCC_FLAGS)))
     resources = kernel_resources(
         _kernels.resource_usage_path("stmap").read_text())
-    counts = sass_counts(path)
-    if len(counts) != 12 or set(counts) != set(resources):
+    listings = sass_listings(path, _stmap_symbol_label)
+    pack = listings.pop("pack_params_kernel")
+    print("[2 build] pack_params_kernel SASS %d opcodes, digest %s" % (
+        len(pack), sass_digest(pack)))
+    if len(listings) != 12 or set(listings) != set(resources):
         raise AssertionError(
             "expected 12 stmap_kernel instantiations, ptxas reports %d and "
-            "the SASS holds %d" % (len(resources), len(counts)))
-    for label in sorted(counts):
-        ops = counts[label]
+            "the SASS holds %d" % (len(resources), len(listings)))
+    for label in sorted(listings):
+        ops = sass_opcodes(listings[label])
         named = ("FFMA", "FMUL", "FADD")
+        fp = sum(ops[n] for n in named)
+        core, direction, _ = label.split()
+        # A distort thread steps its pixels' fixed points side by side.
+        most = STMAP_DISTORT_PIXELS * (8 + (1 + DISTORT_INVERSE_ITERATIONS)
+                                       * STMAP_STEP_OPCODES[core])
         registers, stack, spills = resources[label]
         print("[2 build] %-30s %2d registers, %d bytes stack, %d bytes "
-              "spilled; SASS %3d opcodes: %s, other %d; MUFU %d" % (
+              "spilled; SASS %4d opcodes: %s, other %d; MUFU %d; FP %d%s; "
+              "digest %s" % (
                   label, registers, stack, spills, sum(ops.values()),
                   ", ".join("%s %d" % (n, ops[n]) for n in named),
                   sum(v for k, v in ops.items() if k not in named),
-                  ops["MUFU"]))
+                  ops["MUFU"], fp,
+                  " (at most %d)" % most if direction == "distort" else "",
+                  sass_digest(listings[label])))
         # No division, reciprocal or square root in any kernel, and
         # nothing spilled.
         if ops["MUFU"] or stack or spills:
             raise AssertionError("%s: a special-function opcode or a "
                                  "spill in the kernel" % label)
+        if direction == "distort" and fp > most:
+            raise AssertionError(
+                "%s: %d FP32 opcodes, more than %d pixels a thread of %d "
+                "steps of %d" % (label, fp, STMAP_DISTORT_PIXELS,
+                                 1 + DISTORT_INVERSE_ITERATIONS,
+                                 STMAP_STEP_OPCODES[core]))
 
     t0 = time.perf_counter()
     path = _kernels.build("warp")
@@ -652,20 +707,21 @@ def phase_build():
     print("[2 build] %s in %.2f s" % (path.name, time.perf_counter() - t0))
     resources = kernel_resources(
         _kernels.resource_usage_path("warp").read_text(), _warp_label)
-    counts = sass_counts(path, _warp_label)
-    if len(counts) != 7 or set(counts) != set(resources):
+    listings = sass_listings(path, _warp_label)
+    if len(listings) != 7 or set(listings) != set(resources):
         raise AssertionError(
             "expected 7 warp_kernel instantiations, ptxas reports %d and "
-            "the SASS holds %d" % (len(resources), len(counts)))
-    for label in sorted(counts):
-        ops = counts[label]
+            "the SASS holds %d" % (len(resources), len(listings)))
+    for label in sorted(listings):
+        ops = sass_opcodes(listings[label])
         named = ("LDG", "STG", "FMUL", "FADD", "DMUL", "DADD", "FFMA", "DFMA")
         registers, stack, spills = resources[label]
         print("[2 build] %-24s %2d registers, %d bytes stack, %d bytes "
-              "spilled; SASS %3d opcodes: %s, other %d" % (
+              "spilled; SASS %3d opcodes: %s, other %d; digest %s" % (
                   label, registers, stack, spills, sum(ops.values()),
                   ", ".join("%s %d" % (n, ops[n]) for n in named),
-                  sum(v for k, v in ops.items() if k not in named)))
+                  sum(v for k, v in ops.items() if k not in named),
+                  sass_digest(listings[label])))
         # The eager code's roundings: no product contracted into an FMA.
         if ops["FFMA"] or ops["DFMA"] or stack or spills:
             raise AssertionError("%s: an FMA or a spill in the warp "
@@ -816,7 +872,46 @@ def phase_kernel_vs_plain(device):
                 "%s kernel disagrees with plain version: %s %s %dx%d "
                 "max|diff| %g > %g (finite: %s)" % (
                     kernel, name, direction, w, h, diff, TOL, finite))
+    time_venice2_radial_distort(device, fb)
     return results
+
+
+def time_venice2_radial_distort(device, fb):
+    """The radial distort map from the pixel index at VENICE 2 8.6K, the
+    ACES cell's distort kernel: against its plain version, and timed on
+    the device against its operations bound.  One map is 796 MB, sixteen
+    times the L2, so one map is launched over and over."""
+    from mayamatchmovesolver_torch import models
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+
+    name = "TdeRadialStdDeg4"
+    width, height = VENICE2
+    model = models.TdeRadialStdDeg4.create(**MODEL_PARAMS[name],
+                                           device=device, dtype=torch.float32)
+    got = stmap_mod.stmap_cuda(model, fb, width, height, "distort",
+                               device=device)
+    diff = float((got - stmap_mod.stmap_torch(
+        model, fb, width, height, "distort", device=device)).abs().max())
+    finite = bool(got.isfinite().all())
+    tag = "[3 kernel stmap]"
+    ms, _ = _one_kernel(_kernel_device_ms(_raw_launch(
+        model, fb, "distort", [got], False)), "stmap_kernel", tag)
+    del got
+    bound_ms, bound_by = stmap_bound(name, "distort", width, height)
+    print("%s %-28s distort   %4dx%-4d max|diff| %.3g  kernel %.4f ms  "
+          "bound %.4f ms by %s (%.1f%% of it)" % (
+              tag, name, width, height, diff, ms, bound_ms, bound_by,
+              100.0 * bound_ms / ms))
+    if not finite or not diff <= TOL:
+        raise AssertionError(
+            "stmap kernel disagrees with plain version: %s distort %dx%d "
+            "max|diff| %g > %g (finite: %s)" % (name, width, height, diff,
+                                                TOL, finite))
+    if not ms >= bound_ms:
+        raise AssertionError(
+            "stmap %s distort %dx%d: %.4f ms is under the bound of %.4f ms: "
+            "the bound counts too much" % (name, width, height, ms,
+                                           bound_ms))
 
 
 def _check_recovery(tag, attrs_out, result, codes):

@@ -49,8 +49,9 @@
 //     what the guarded division gave).  The fixed point then folds to
 //     p <- t - h(p), started at p = t:  t - (core(t) - t) = t - h(t)  is
 //     the same step, so distort is 21 equal steps of FMA chains whose
-//     last FMA is the update: 12 / 17 / 15 FP32 opcodes a step as
-//     compiled (classic / radial / anamorphic).
+//     last FMA is the update: 12 / 13 / 15 FP32 opcodes a step as
+//     compiled (classic / radial / anamorphic; the radial h grouped
+//     around the one sum the x and y terms share, see displace).
 //   * The iteration count is a compile-time constant
 //     (-DMMSOLVER_DISTORT_ITERATIONS, from models/base.py), so the loop
 //     unrolls: no counter, compare or branch.
@@ -114,14 +115,18 @@ __device__ __forceinline__ void displace(const StmapParams& p, float x,
   } else if (CORE == RADIAL_DEG4) {
     // 3DE4 radial degree 4 with decentering; c = {c2, u2, v2, c4, u4, v4}:
     // h = (x, y)*(c2*r2 + c4*r4) + (r2 + 2*x2, 2xy)*u + (2xy, r2 + 2*y2)*v
-    // with u = u2 + u4*r2 and v = v2 + v4*r2.
-    const float sxy = (sx + sx) * y;
-    const float g = r2 * fmaf(c[3], r2, c[0]);
-    const float u = fmaf(c[4], r2, c[1]);
-    const float v = fmaf(c[5], r2, c[2]);
-    const float wx = fmaf(2.0f, x2, r2), wy = fmaf(2.0f, y2, r2);
-    *ox = fmaf(sxy, v, fmaf(NEG ? -wx : wx, u, fmaf(sx, g, ax)));
-    *oy = fmaf(sxy, u, fmaf(NEG ? -wy : wy, v, fmaf(sy, g, ay)));
+    // with u = u2 + u4*r2 and v = v2 + v4*r2, regrouped as
+    // h = (x, y)*k + r2*(u, v),  k = r2*g + 2*s,  s = x*u + y*v,
+    // g = c2 + c4*r2, and rr the r2 of one FFMA: 3 FMUL and 10 FFMA.
+    const float rr = fmaf(x, x, y2);
+    const float g = fmaf(c[3], rr, c[0]);
+    const float u = fmaf(c[4], rr, c[1]);
+    const float v = fmaf(c[5], rr, c[2]);
+    const float s = fmaf(x, u, y * v);
+    const float k = fmaf(2.0f, s, rr * g);
+    const float srr = NEG ? -rr : rr;
+    *ox = fmaf(sx, k, fmaf(srr, u, ax));
+    *oy = fmaf(sy, k, fmaf(srr, v, ay));
   } else {
     // 3DE4 anamorphic degree 4, division-free; c = {cx02, cy02, cx22,
     // cy22, cx04 - cx44, cy04 - cy44, cx24, cy24, 2*cx44, 2*cy44}:
@@ -200,7 +205,8 @@ __device__ __forceinline__ void map_texel(float4* __restrict__ map,
 // three registers: at one pixel a thread the distort kernels, bound by
 // their issue rate, ran 9-17% slower than with the coefficients in the
 // constant bank; at four they run within 2% of that, at 31-48 registers
-// (PERF.md).  A column past the ragged edge repeats the last
+// (PERF.md).  Eight gained the radial core 4% at 8640x5760 and lost it
+// 4-6% at 1920x1080.  A column past the ragged edge repeats the last
 // one and is not written.
 template <int CORE, bool FROM_MAP, int PIXELS>
 __device__ __forceinline__ void distort_texels(float4* __restrict__ map,

@@ -169,14 +169,13 @@ def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
             gy = _fma(c[2], x2, _fma(c[3], y2, c[5] * r4))
             return _fma(sx, gx, ax), _fma(sy, gy, ay)
         if core_id == RADIAL_DEG4:
-            sxy = (sx + sx) * y
-            g = r2 * _fma(c[3], r2, c[0])
-            u, v = _fma(c[4], r2, c[1]), _fma(c[5], r2, c[2])
-            wx, wy = _fma(f(2), x2, r2), _fma(f(2), y2, r2)
-            if neg:
-                wx, wy = -wx, -wy
-            return (_fma(sxy, v, _fma(wx, u, _fma(sx, g, ax))),
-                    _fma(sxy, u, _fma(wy, v, _fma(sy, g, ay))))
+            rr = _fma(x, x, y2)
+            g = _fma(c[3], rr, c[0])
+            u, v = _fma(c[4], rr, c[1]), _fma(c[5], rr, c[2])
+            s = _fma(x, u, y * v)
+            k = _fma(f(2), s, rr * g)
+            srr = -rr if neg else rr
+            return _fma(sx, k, _fma(srr, u, ax)), _fma(sy, k, _fma(srr, v, ay))
         d = x2 - y2
         gx = _fma(r2, _fma(c[4], r2, _fma(c[6], d, c[0])),
                   d * _fma(c[8], d, c[2]))

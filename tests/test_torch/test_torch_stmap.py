@@ -16,6 +16,8 @@ on the card.
 """
 
 import dataclasses
+import json
+import pathlib
 
 import jax
 import numpy as np
@@ -165,6 +167,79 @@ def test_anamorphic_polynomial_needs_no_division(dtype):
         np.testing.assert_allclose(got[:4], 1.0, rtol=0, atol=1e-30)
         np.testing.assert_allclose(
             got, want[i], rtol=0, atol=8 * np.finfo(dtype).eps)
+
+
+# The knobs of the benchmark's spherical lens file
+# (mmbench/configs/venice2_radial_half.json) and each one's field in
+# TdeRadialStdDeg4; an animated knob runs from its first value to its last.
+VENICE2_CONFIG = (pathlib.Path(__file__).resolve().parents[2] / "mmbench"
+                  / "configs" / "venice2_radial_half.json")
+RADIAL_KNOBS = {"Distortion_Degree_2": "degree2_distortion",
+                "U_Degree_2": "degree2_u", "V_Degree_2": "degree2_v",
+                "Quartic_Distortion_Degree_4": "degree4_distortion",
+                "U_Degree_4": "degree4_u", "V_Degree_4": "degree4_v",
+                "Phi_Cylindric_Direction": "cylindric_direction",
+                "B_Cylindric_Bending": "cylindric_bending"}
+
+
+def _venice2_radial(frame):
+    """(radial model, film back) of the VENICE 2 lens file at its first
+    (0) or last (-1) frame, as Python floats."""
+    config = json.loads(VENICE2_CONFIG.read_text())
+    model = t_models.TdeRadialStdDeg4(**{
+        field: float(value[frame] if isinstance(value, list) else value)
+        for knob, field in RADIAL_KNOBS.items()
+        for value in [config["lens"]["knobs"][knob]]})
+    width_mm, height_mm = config["film_back_mm"]
+    return model, t_models.FilmBack(width_mm / 10, height_mm / 10, 0.0, 0.0,
+                                    config["pixel_aspect"])
+
+
+@pytest.mark.parametrize("lens", ["venice2_first", "venice2_last",
+                                  "radial_deg4"])
+def test_radial_fixed_point_rounds_like_float64(lens):
+    """The radial core's distort arithmetic, 1 + DISTORT_INVERSE_ITERATIONS
+    float32 steps of the kernel's transcription, over the core's input of
+    the whole dn frame (corners included) of the benchmark's lens file at
+    its first and last frame and of MODELS' radial lens: within 2e-7 dn of
+    the same steps of the same polynomial, written term by term, in
+    float64 from the same float32 coefficients and points."""
+    if lens == "radial_deg4":
+        model, fb = torch_model(lens)
+    else:
+        model, fb = _venice2_radial(0 if lens.endswith("first") else -1)
+    kind, values, fb_values = emulation.layer_fields(model, fb)
+    core, params = emulation.pack_params(kind, values, fb_values, True, None)
+    _, _, _, post = emulation.kernel_config(kind, values, fb_values)
+    # The whole frame in dn, through the cylindric extender's inverse: the
+    # points the fixed point starts from.
+    fbw, fbh, lcox, lcoy = fb_values[:4]
+    radius = np.hypot(fbw, fbh) / 2
+    s, t = np.meshgrid(np.linspace(0.0, 1.0, 161), np.linspace(0.0, 1.0, 107))
+    dn = np.stack([((s - 0.5) * fbw - lcox) / radius,
+                   ((t - 0.5) * fbh - lcoy) / radius])
+    start = np.einsum("ij,jhw->hwi", emulation.inverse2(post), dn).astype(
+        np.float32)
+    # With both affine frames the identity, the kernel maps the point as is.
+    identity = np.array([1, 0, 0, 1, 0, 0] * 2, np.float32)
+    emulated = emulation._emulate_kernel(
+        core, np.concatenate([params[:10], identity]), True,
+        t_models.base.DISTORT_INVERSE_ITERATIONS,
+        source=np.concatenate([start, np.zeros_like(start)], axis=-1))
+
+    c = params[:6].astype(np.float64)
+    x0, y0 = (start[..., i].astype(np.float64) for i in (0, 1))
+    x, y = x0, y0
+    for _ in range(1 + t_models.base.DISTORT_INVERSE_ITERATIONS):
+        r2 = x * x + y * y
+        u, v = c[1] + c[4] * r2, c[2] + c[5] * r2
+        radial = c[0] * r2 + c[3] * r2 * r2
+        x, y = (x0 - (x * radial + (r2 + 2 * x * x) * u + 2 * x * y * v),
+                y0 - (y * radial + 2 * x * y * u + (r2 + 2 * y * y) * v))
+    assert core == emulation.RADIAL_DEG4
+    assert np.hypot(*dn).max() >= 1.0 - 1e-12  # the corners
+    err = np.abs(emulated[..., :2] - np.stack([x, y], axis=-1)).max()
+    assert err <= 2e-7, err
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
