@@ -9,7 +9,9 @@ ALEXA LF open-gate size, the ST-map wrapper's spans and
 counters there, the image warp's kernel (csrc/warp.cu) against the eager
 warp on the card and the float64 warp on the CPU at 1e-6 (a float16
 image through a float32 map too), a lens file's radial map at VENICE 2
-8.6K size, and the no-fallback rule.
+8.6K size, the two-layer lens stack of a radial calibration under a
+classic layer with a half plate warped through it, and the no-fallback
+rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -301,6 +303,74 @@ def test_stmap_cuda_radial_core_at_venice2_full_frame(direction):
     identity = t_stmap.stmap_torch(models[0].__class__(), fb, 8640, 5760,
                                    direction, device="cuda")
     assert float((got - identity).abs().max()) > 1e-3
+
+
+# The two-layer lens file of the benchmark's cell shot.stack_half_export:
+# a static 3DE4 radial calibration under a breathing 3DE classic layer.
+VENICE2_STACK = VENICE2_RADIAL.replace(
+    "Distortion_Degree_2 {{curve x1001 -0.03 x1002 -0.042 }}",
+    "Distortion_Degree_2 -0.036").replace(
+    "Quartic_Distortion_Degree_4 {{curve x1001 0.004 x1002 0.006 }}",
+    "Quartic_Distortion_Degree_4 0.005") + """LD_3DE_Classic_LD_Model {
+ tde4_filmback_width_cm 3.59
+ tde4_filmback_height_cm 2.4
+ tde4_pixel_aspect 1
+ Distortion {{curve x1001 -0.004 x1002 -0.012 }}
+ Anamorphic_Squeeze 1
+ Curvature_X 0
+ Curvature_Y 0
+ Quartic_Distortion 0.0006
+}
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+def test_stmap_stack_of_radial_and_classic_layers_warps_half_plates(
+        direction):
+    """The stack cell's two layers from its lens file at 1080 x 720: one
+    pack, one map launch from the pixel index and one layer launch a
+    call, no host read; the map within 1e-6 of the CPU transcription of
+    the kernels' arithmetic (_torch_stmap_emulation.emulated_stack) and
+    within 2e-5 of the plain stack on the card; a half plate warped
+    through it is one half launch, bit-equal to the eager warp."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.io import lensfile
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    layers = lensfile.parse_string(VENICE2_STACK)
+    assert [layer.model_type for layer in layers.layers] == [
+        "tde_radial_std_deg4", "tde_classic"]
+    fb = layers.film_back()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    plate = torch.rand((720, 1080, 4), generator=g, device="cuda").half()
+    for frame in (1001, 1002):
+        models = layers.models_at(frame)
+        before = counters.copy()
+        got = t_stmap.stmap(models, fb, 1080, 720, direction, device="cuda")
+        for key, n in (("host_reads", 0), ("stmap.device_packs", 1),
+                       ("stmap.launches", 1), ("stmap_layer.launches", 1)):
+            assert counters[key] == before[key] + n, (frame, key)
+        plain = t_stmap.stmap_stack_torch(models, fb, 1080, 720, direction,
+                                          device="cuda")
+        emulated = emulation.emulated_stack(models, fb, 1080, 720,
+                                            direction)
+        warped = t_warp.warp_image(plate, got)
+        assert counters["warp.half_launches"] == \
+            before["warp.half_launches"] + 1
+        eager = t_warp._bilinear_sample(plate, got[..., 0], got[..., 1])
+        torch.cuda.synchronize()
+        assert got.shape == (720, 1080, 4)
+        assert float((got - plain).abs().max()) <= ATOL, frame
+        assert float((got.cpu() - torch.as_tensor(emulated)).abs().max()) \
+            <= 1e-6, frame
+        assert warped.dtype == torch.float32
+        assert torch.equal(warped, eager), frame
+        radial_alone = t_stmap.stmap(models[:1], fb, 1080, 720, direction,
+                                     device="cuda")
+        assert float((got - radial_alone).abs().max()) > 1e-3
 
 
 @pytest.mark.cuda
