@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout (the
-ST-map kernel and its layer variant, both of csrc/stmap.cu, and the
-image warp of csrc/warp.cu), reads their registers and SASS opcode
-counts, holds each ST-map kernel against its plain PyTorch version and
-times it and the pack kernel before it against the bound, then drives
-the port's main paths and checks what comes out:
+ST-map kernel, its layer variant and the fused undistort stack kernel,
+all of csrc/stmap.cu, and the image warp of csrc/warp.cu), reads their
+registers and SASS opcode counts, holds each ST-map kernel against its
+plain PyTorch version and times it and the pack kernel before it against
+the bound (the fused stack at 8640x5760 beside a launch a layer), then
+drives the port's main paths and checks what comes out:
 
   * phases 4-5: a dense lens + focal + camera solve of a synthetic HD
     shot on the card, and the ST-map export of the solved lens;
@@ -144,6 +145,14 @@ SEQUENTIAL_FRAMES = 24
 STACK_RADIAL = dict(degree2_distortion=0.01, degree2_u=0.002,
                     degree4_distortion=-0.003, cylindric_direction=10.0,
                     cylindric_bending=0.01)
+
+# Phase 3: the lens stack of the benchmark's cell shot.stack_half_export
+# (its first frame's classic layer), whose undistort is timed at VENICE2.
+STACK_CELL_RADIAL = dict(degree2_distortion=-0.036, degree2_u=0.0008,
+                         degree2_v=-0.0006, degree4_distortion=0.005,
+                         degree4_u=0.0002, degree4_v=-0.0002,
+                         cylindric_direction=8.0, cylindric_bending=0.003)
+STACK_CELL_CLASSIC = dict(distortion=-0.004, quartic_distortion=0.0006)
 
 # Phase 10: a hooked or resumed solve runs the same iteration body the
 # same number of times as the plain one, so the iterations and the stop
@@ -469,20 +478,23 @@ def _raw_launch(model, fb, direction, maps, from_map):
     once, as a no-argument call (no wrapper, no launch count) that takes
     the (H, W, 4) maps in `maps` in turn: the pack kernel, then the map
     kernel that starts from the pixel index and writes the map, or the
-    layer variant (`from_map`) that maps it in place."""
+    layer variant (`from_map`) that maps it in place.  `model` may be a
+    list of up to eight layers in application order: one pack for them,
+    then their map launches (one fused launch for an undistort stack)."""
     from mayamatchmovesolver_torch.ops import stmap as stmap_mod
 
+    layers = model if isinstance(model, list) else [model]
     device = maps[0].device
-    params = torch.empty(stmap_mod._PARAM_COUNT, dtype=torch.float32,
-                         device=device)
+    params = torch.empty(len(layers) * stmap_mod._PARAM_COUNT,
+                         dtype=torch.float32, device=device)
     keep = []
     records = stmap_mod._field_records(
-        *stmap_mod._lens_fields(fb, [model]), device, keep)
+        *stmap_mod._lens_fields(fb, layers), device, keep)
     # At 10 microseconds a kernel, a launch loop that does more than the
     # bare C call is bound by the host, and its reading wanders between
     # 1x and 2x the kernel's time.
     turns = itertools.cycle([stmap_mod._packed_launch_args(
-        st_map, [model], direction, not from_map, records,
+        st_map, layers, direction, not from_map, records,
         params.data_ptr()) for st_map in maps])
 
     def launch(held=(maps, params, keep)):  # what the addresses point to
@@ -549,11 +561,24 @@ def _kernel_label(mangled):
                          ("from-pixel", "from-map")[from_map])
 
 
+def _stack_label(mangled):
+    """'stack undistort from-map' from a stmap_stack_kernel<FROM_MAP>
+    instantiation's mangled name; None for another symbol."""
+    import re
+
+    found = re.search(r"stmap_stack_kernelILb(\d)E", mangled)
+    if not found:
+        return None
+    return "stack undistort " + ("from-pixel", "from-map")[
+        int(found.group(1))]
+
+
 def _stmap_symbol_label(mangled):
-    """_kernel_label's, or 'pack_params_kernel' for the pack kernel."""
+    """_kernel_label's or _stack_label's, or 'pack_params_kernel' for the
+    pack kernel."""
     if "pack_params_kernel" in mangled:
         return "pack_params_kernel"
-    return _kernel_label(mangled)
+    return _kernel_label(mangled) or _stack_label(mangled)
 
 
 def _warp_label(mangled):
@@ -662,15 +687,34 @@ def phase_build():
     print("[2 build] %s in %.2f s (%s)" % (
         path.name, time.perf_counter() - t0, " ".join(_kernels.NVCC_FLAGS)))
     resources = kernel_resources(
-        _kernels.resource_usage_path("stmap").read_text())
+        _kernels.resource_usage_path("stmap").read_text(),
+        _stmap_symbol_label)
+    resources.pop("pack_params_kernel", None)
     listings = sass_listings(path, _stmap_symbol_label)
     pack = listings.pop("pack_params_kernel")
     print("[2 build] pack_params_kernel SASS %d opcodes, digest %s" % (
         len(pack), sass_digest(pack)))
-    if len(listings) != 12 or set(listings) != set(resources):
+    stacks = {label: listings.pop(label) for label in list(listings)
+              if label.startswith("stack ")}
+    if (len(listings) != 12 or len(stacks) != 2
+            or set(listings) | set(stacks) != set(resources)):
         raise AssertionError(
-            "expected 12 stmap_kernel instantiations, ptxas reports %d and "
-            "the SASS holds %d" % (len(resources), len(listings)))
+            "expected 12 stmap_kernel and 2 stmap_stack_kernel "
+            "instantiations, ptxas reports %d and the SASS holds %d and %d"
+            % (len(resources), len(listings), len(stacks)))
+    for label in sorted(stacks):
+        ops = sass_opcodes(stacks[label])
+        named = ("FFMA", "FMUL", "FADD", "LDG", "STG")
+        registers, stack, spills = resources[label]
+        print("[2 build] %-30s %2d registers, %d bytes stack, %d bytes "
+              "spilled; SASS %4d opcodes: %s, other %d; MUFU %d; digest %s"
+              % (label, registers, stack, spills, sum(ops.values()),
+                 ", ".join("%s %d" % (n, ops[n]) for n in named),
+                 sum(v for k, v in ops.items() if k not in named),
+                 ops["MUFU"], sass_digest(stacks[label])))
+        if ops["MUFU"] or stack or spills:
+            raise AssertionError("%s: a special-function opcode or a "
+                                 "spill in the kernel" % label)
     for label in sorted(listings):
         ops = sass_opcodes(listings[label])
         named = ("FFMA", "FMUL", "FADD")
@@ -873,6 +917,7 @@ def phase_kernel_vs_plain(device):
                 "max|diff| %g > %g (finite: %s)" % (
                     kernel, name, direction, w, h, diff, TOL, finite))
     time_venice2_radial_distort(device, fb)
+    time_venice2_stack_undistort(device)
     return results
 
 
@@ -912,6 +957,79 @@ def time_venice2_radial_distort(device, fb):
             "stmap %s distort %dx%d: %.4f ms is under the bound of %.4f ms: "
             "the bound counts too much" % (name, width, height, ms,
                                            bound_ms))
+
+
+def stack_bound(model_names, width, height):
+    """(bound_ms, bound_by) of an undistort stack mapped in one pass from
+    the pixel index: the larger of its 16 bytes a pixel written over the
+    memory rate and its layers' operations over the float32 rate."""
+    pixels = width * height
+    bytes_ms = pixels * 16 / H100_HBM_BYTES_PER_S * 1e3
+    flops_ms = (pixels * sum(stmap_flops(name, "undistort")
+                             for name in model_names)
+                / H100_FP32_FLOPS * 1e3)
+    if bytes_ms >= flops_ms:
+        return bytes_ms, "bytes"
+    return flops_ms, "operations"
+
+
+def time_venice2_stack_undistort(device):
+    """The stack cell's undistort at VENICE 2 8.6K (the classic layer from
+    the pixel index, then the static radial grid calibration): the fused
+    stack kernel's map against the plain stack and, bit for bit, against
+    a launch a layer, and both timed on the device, the fused launch
+    against its bound.  One map is 796 MB, so one map is launched over
+    and over."""
+    from mayamatchmovesolver_torch import models
+    from mayamatchmovesolver_torch.ops import stmap as stmap_mod
+
+    width, height = VENICE2
+    kw = dict(device=device, dtype=torch.float32)
+    fb = models.FilmBack.create(width_cm=3.59, height_cm=2.4, **kw)
+    radial = models.TdeRadialStdDeg4.create(**STACK_CELL_RADIAL, **kw)
+    classic = models.TdeClassic.create(**STACK_CELL_CLASSIC, **kw)
+    tag = "[3 kernel stmap_stack]"
+    got = stmap_mod.stmap_stack([radial, classic], fb, width, height,
+                                "undistort", device=device)
+    two_pass = stmap_mod.stmap_cuda(classic, fb, width, height, "undistort",
+                                    device=device)
+    stmap_mod.stmap_layer_cuda(two_pass, radial, fb, "undistort")
+    plain = stmap_mod.stmap_stack_torch([radial, classic], fb, width, height,
+                                        "undistort", device=device)
+    diff = float((got - plain).abs().max())
+    del plain
+    equal = torch.equal(got, two_pass)
+    finite = bool(got.isfinite().all())
+    fused_ms, _ = _one_kernel(_kernel_device_ms(_raw_launch(
+        [classic, radial], fb, "undistort", [got], False)),
+        "stmap_stack_kernel", tag)
+    first = _raw_launch(classic, fb, "undistort", [two_pass], False)
+    second = _raw_launch(radial, fb, "undistort", [two_pass], True)
+    times = _kernel_device_ms(lambda: (first(), second()))
+    layer_ms = [ms for name, (ms, _) in times.items()
+                if "stmap_kernel" in name]
+    if len(layer_ms) != 2:
+        raise AssertionError("%s: %d map kernels under the profiler, not 2: "
+                             "%s" % (tag, len(layer_ms), sorted(times)))
+    two_pass_ms = sum(layer_ms)
+    del got, two_pass
+    bound_ms, bound_by = stack_bound(["TdeClassic", "TdeRadialStdDeg4"],
+                                     width, height)
+    print("%s classic + radial undistort %4dx%-4d max|diff vs plain| %.3g  "
+          "bit-equal to a launch a layer: %s  fused kernel %.4f ms  a "
+          "launch a layer %.4f ms  bound %.4f ms by %s (%.1f%% of it)" % (
+              tag, width, height, diff, equal, fused_ms, two_pass_ms,
+              bound_ms, bound_by, 100.0 * bound_ms / fused_ms))
+    if not finite or not diff <= TOL or not equal:
+        raise AssertionError(
+            "fused undistort stack %dx%d: max|diff| %g > %g, finite %s, "
+            "bit-equal to a launch a layer %s" % (width, height, diff, TOL,
+                                                  finite, equal))
+    if not fused_ms >= bound_ms:
+        raise AssertionError(
+            "stmap_stack undistort %dx%d: %.4f ms is under the bound of "
+            "%.4f ms: the bound counts too much" % (width, height, fused_ms,
+                                                    bound_ms))
 
 
 def _check_recovery(tag, attrs_out, result, codes):
@@ -1423,10 +1541,11 @@ def lens_file_stack(distortion, device, folder):
 
 
 def phase_stack_and_warp(device, distortion):
-    """The lens file's stack exported at HD in both directions (one
-    kernel launch a layer: the first from the pixel index, the second
-    from the map) against the all-plain stack, and an HD image warped
-    through the maps.  Returns what time_stack_and_warp needs."""
+    """The lens file's stack exported at HD in both directions (distort
+    one kernel launch a layer: the first from the pixel index, the
+    second from the map; undistort one fused launch from the pixel
+    index) against the all-plain stack, and an HD image warped through
+    the maps.  Returns what time_stack_and_warp needs."""
     import tempfile
 
     from mayamatchmovesolver_torch import models as models_mod
@@ -1461,7 +1580,9 @@ def phase_stack_and_warp(device, distortion):
                   tag, direction, launched[0], launched[1], len(stack),
                   tuple(maps[direction].shape),
                   bool(maps[direction].isfinite().all()), diff))
-        if (launched != (1, len(stack) - 1) or launched_padded != launched
+        # An undistort stack is one fused launch (stmap.stack_launches).
+        want = (1, len(stack) - 1 if direction == "distort" else 0)
+        if (launched != want or launched_padded != launched
                 or not torch.equal(padded, maps[direction])
                 or tuple(maps[direction].shape) != (HD[1], HD[0], 4)
                 or not bool(maps[direction].isfinite().all())

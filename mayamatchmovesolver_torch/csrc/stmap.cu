@@ -15,6 +15,10 @@
 //                         reference leaves a lens stack's further layers
 //                         to XLA; here they stay out of eager PyTorch.
 //
+// Either maps an undistort stack of two or more layers in one launch of
+// stmap_stack_kernel, which chains the layers in registers: from the
+// pixel index (mmsolver_stmap) or from the map (mmsolver_stmap_layer).
+//
 // Both take the lens as its fields (ops/stmap.py::_field_records): each
 // a device address (a lens held in tensors on the card) or a host double.
 // One launch of pack_params_kernel folds them in float64 into PARAM_COUNT
@@ -34,6 +38,11 @@
 // at the card's peak rates, the 32 it moves from a map about as long, and
 // the measured time follows the opcode count in both.  Undistort: the
 // bytes, one 16-byte store a pixel and, from a map, one 16-byte load.
+// An undistort stack too: a layer needs 16 + 18 / 28 / 26 operations a
+// pixel (an FMA as two), so two layers take a quarter of the time of
+// their 16 bytes (eight anamorphic ones about equal it), and a
+// launch a layer would write the map once and read and write it again
+// for every further layer, 16 + 32 (layers - 1) bytes a pixel.
 // Tensor cores, TMA and clusters have nothing to offer a
 // kernel that multiplies no matrices.
 //
@@ -64,6 +73,16 @@
 //     chain, and the SASS opcode count times the pixels accounts for the
 //     time measured (PERF.md), so the lanes' rate or the bytes, not
 //     latency or the last wave, is what is left.
+//   * An undistort stack is one pass (stmap_stack_kernel): its points
+//     between the layers stay in registers, so the stack moves the
+//     bytes of one layer, 16 a pixel from the pixel index.  A thread
+//     maps STACK_PIXELS pixels and loads each layer's floats once for
+//     them where the loop reaches the layer (L1 hits after the first
+//     warps); the layer's core is chosen by a switch that no warp
+//     diverges on.  Distort stacks keep a launch a layer: their
+//     fixed points are bound by operations, and two cores' coefficients
+//     and fixed points at four pixels a thread want their own register
+//     budget.
 // No --use_fast_math: the result stays within 2e-5 of the plain PyTorch
 // version.
 
@@ -83,6 +102,11 @@ constexpr int MAX_COEFFS = 10;
 constexpr int PARAM_COUNT = MAX_COEFFS + 12;
 // Pixels a thread of a distort kernel maps (distort_texels).
 constexpr int DISTORT_PIXELS = 4;
+// Pixels a thread of the fused undistort stack kernel maps, each layer's
+// floats loaded once for all of them: at one pixel a thread the loads and
+// the layer loop held the two-layer stack to 76% of its byte bound at
+// 8640x5760, at two to eight it reached 98% (PERF.md).
+constexpr int STACK_PIXELS = 4;
 
 struct StmapParams {
   float c[MAX_COEFFS];  // core coefficients, model-specific order
@@ -264,23 +288,120 @@ __device__ __forceinline__ void distort_texels(float4* __restrict__ map,
 // The parameters in device memory, where pack_params_kernel wrote them:
 // each thread loads the same 88 bytes once, as 8-byte loads through the
 // read-only path (the first warps bring them into L1), into registers.
-template <int CORE, bool DISTORT, bool FROM_MAP>
-__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
-    stmap_kernel(float4* __restrict__ map, int width, int height,
-                 const StmapParams* __restrict__ params) {
-  StmapParams p;
+__device__ __forceinline__ void load_params(
+    const StmapParams* __restrict__ params, StmapParams* p) {
   const float2* from = reinterpret_cast<const float2*>(params);
-  float* to = reinterpret_cast<float*>(&p);
+  float* to = reinterpret_cast<float*>(p);
 #pragma unroll
   for (int i = 0; i < PARAM_COUNT / 2; ++i) {
     const float2 pair = __ldg(from + i);
     to[2 * i] = pair.x;
     to[2 * i + 1] = pair.y;
   }
+}
+
+template <int CORE, bool DISTORT, bool FROM_MAP>
+__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+    stmap_kernel(float4* __restrict__ map, int width, int height,
+                 const StmapParams* __restrict__ params) {
+  StmapParams p;
+  load_params(params, &p);
   if (DISTORT) {
     distort_texels<CORE, FROM_MAP, DISTORT_PIXELS>(map, width, height, p);
   } else {
     map_texel<CORE, DISTORT, FROM_MAP>(map, width, height, p);
+  }
+}
+
+constexpr int PACK_LAYERS = 8;  // layers a pack launch takes
+
+// Bits of a layer's Core in a fused stack's `cores`: layer i's core is
+// (cores >> (CORE_BITS * i)) & CORE_MASK, so the ids come by value in one
+// register and no thread indexes the kernel's parameters.
+constexpr int CORE_BITS = 2;
+constexpr unsigned CORE_MASK = (1u << CORE_BITS) - 1u;
+static_assert(ANAMORPHIC_DEG4 <= (int)CORE_MASK &&
+                  PACK_LAYERS * CORE_BITS <= 32,
+              "a stack's cores fit in one unsigned");
+
+// One layer of undistort for a thread's STACK_PIXELS points, each as
+// map_texel maps one: frame_in, displace, frame_out.
+template <int CORE>
+__device__ __forceinline__ void undistort_points(const StmapParams& p,
+                                                 float* u, float* v) {
+#pragma unroll
+  for (int k = 0; k < STACK_PIXELS; ++k) {
+    float tx, ty, qx, qy;
+    frame_in(p, u[k], v[k], &tx, &ty);
+    displace<CORE, false>(p, tx, ty, tx, ty, &qx, &qy);
+    const float4 st = frame_out(p, qx, qy, 0.0f, 1.0f);
+    u[k] = st.x;
+    v[k] = st.y;
+  }
+}
+
+// An undistort stack of two or more layers in one pass: a thread's points
+// run through every layer in registers and each texel is written once.
+// The first layer's point is the pixel index, or (FROM_MAP) the texel's
+// own (S, T); B and A carry through.  Each layer is map_texel's
+// undistort: frame_in, displace, frame_out, in that order, so every
+// point between two layers is the float32 (S, T) that a launch a layer
+// stores in the map and the next one reads back, and the map is bit-equal
+// to theirs.  The core is chosen by a switch on a value every thread of
+// the launch shares, so a warp never diverges on it.  `cores` holds the
+// layers' Core ids (CORE_BITS each), `params` their packed floats.  A
+// thread maps STACK_PIXELS pixels, BLOCK_W columns apart in a tile
+// STACK_PIXELS * BLOCK_W wide; a column past the ragged edge repeats the
+// last one and is not written.
+template <bool FROM_MAP>
+__global__ void __launch_bounds__(BLOCK_W * BLOCK_H)
+    stmap_stack_kernel(float4* __restrict__ map, int width, int height,
+                       const StmapParams* __restrict__ params,
+                       unsigned cores, int layers) {
+  const int col = blockIdx.x * (STACK_PIXELS * BLOCK_W) + threadIdx.x;
+  const int row = blockIdx.y * BLOCK_H + threadIdx.y;
+  if (col >= width || row >= height) return;
+
+  float4* texel[STACK_PIXELS];
+  float u[STACK_PIXELS], v[STACK_PIXELS];
+  float blue[STACK_PIXELS], alpha[STACK_PIXELS];
+#pragma unroll
+  for (int k = 0; k < STACK_PIXELS; ++k) {
+    const int c = k == 0 ? col : min(col + k * BLOCK_W, width - 1);
+    texel[k] = map + ((size_t)row * width + c);
+    blue[k] = 0.0f;
+    alpha[k] = 1.0f;
+    if (FROM_MAP) {
+      const float4 m = *texel[k];
+      u[k] = m.x;
+      v[k] = m.y;
+      blue[k] = m.z;
+      alpha[k] = m.w;
+    } else {
+      u[k] = (float)c;
+      v[k] = (float)row;
+    }
+  }
+  for (int layer = 0; layer < layers; ++layer) {
+    StmapParams p;
+    load_params(params + layer, &p);
+    switch ((cores >> (CORE_BITS * layer)) & CORE_MASK) {
+      case CLASSIC:
+        undistort_points<CLASSIC>(p, u, v);
+        break;
+      case RADIAL_DEG4:
+        undistort_points<RADIAL_DEG4>(p, u, v);
+        break;
+      default:
+        undistort_points<ANAMORPHIC_DEG4>(p, u, v);
+        break;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < STACK_PIXELS; ++k) {
+    if (k == 0 || col + k * BLOCK_W < width) {
+      *texel[k] = make_float4(u[k], v[k], blue[k], alpha[k]);
+    }
   }
 }
 
@@ -304,7 +425,6 @@ enum Model {
 constexpr int FILM_BACK_FIELDS = 5;  // width, height, offset x, y (cm),
                                      // pixel aspect
 constexpr int MODEL_FIELDS = 14;     // the most a model has (rescaled)
-constexpr int PACK_LAYERS = 8;       // layers a pack launch takes
 
 // One field of a model or film back, in its dataclass's field order.
 struct Field {
@@ -466,6 +586,11 @@ void launch_core(float4* map, int width, int height, bool distort,
   }
 }
 
+// The Core of a Model: both anamorphic models run the anamorphic core.
+int core_of(int kind) {
+  return kind < ANAMORPHIC_DEG4 ? kind : ANAMORPHIC_DEG4;
+}
+
 template <bool FROM_MAP>
 void launch_map(float4* map, int width, int height, int core_id,
                 bool distort, const StmapParams* p, cudaStream_t stream) {
@@ -484,9 +609,11 @@ void launch_map(float4* map, int width, int height, int core_id,
   }
 }
 
-// The pack launch for `layers` layers, then one map launch a layer, each
-// reading its own PARAM_COUNT floats of `params`; the first from the
-// pixel index unless FROM_MAP, every further one from the map.
+// The pack launch for `layers` layers, then the map launches, reading
+// each layer's PARAM_COUNT floats of `params`: an undistort stack of two
+// or more layers is one stmap_stack_kernel launch; else one map launch a
+// layer, the first from the pixel index unless FROM_MAP, every further
+// one from the map.  ops/stmap.py::_fused_stack states the same rule.
 // `fields` holds FILM_BACK_FIELDS Field records, then MODEL_FIELDS a
 // layer; `kinds` a Model a layer; both are host memory, read before this
 // returns.  `params` is device memory for layers * PARAM_COUNT floats,
@@ -521,10 +648,20 @@ int launch(void* map, int width, int height, int distort, int layers,
   StmapParams* packed = reinterpret_cast<StmapParams*>(params);
   pack_params_kernel<<<1, PACK_THREADS, 0, s>>>(args, packed);
   float4* m = static_cast<float4*>(map);
+  if (!distort && layers >= 2) {
+    unsigned cores = 0;
+    for (int layer = 0; layer < layers; ++layer) {
+      cores |= (unsigned)core_of(kinds[layer]) << (CORE_BITS * layer);
+    }
+    constexpr int tile = STACK_PIXELS * BLOCK_W;
+    dim3 block(BLOCK_W, BLOCK_H);
+    dim3 grid((width + tile - 1) / tile, (height + BLOCK_H - 1) / BLOCK_H);
+    stmap_stack_kernel<FROM_MAP>
+        <<<grid, block, 0, s>>>(m, width, height, packed, cores, layers);
+    return (int)cudaGetLastError();
+  }
   for (int layer = 0; layer < layers; ++layer) {
-    // Both anamorphic models run the anamorphic core.
-    const int core_id = kinds[layer] < ANAMORPHIC_DEG4 ? kinds[layer]
-                                                       : ANAMORPHIC_DEG4;
+    const int core_id = core_of(kinds[layer]);
     const StmapParams* p = packed + layer;
     if (FROM_MAP || layer > 0) {
       launch_map<true>(m, width, height, core_id, distort != 0, p, s);
@@ -539,8 +676,9 @@ int launch(void* map, int width, int height, int distort, int layers,
 
 // Plain C entry points for ctypes.  Both take the lens as Field records
 // (see launch), launch the pack kernel once for up to PACK_LAYERS layers,
-// then the map kernel a layer, reading the parameters from `params`; they
-// launch on `stream`, allocate nothing and do not synchronise.
+// then the map kernel a layer, or for an undistort stack the fused kernel
+// once, reading the parameters from `params`; they launch on `stream`,
+// allocate nothing and do not synchronise.
 
 // Writes height*width float4 texels [S, T, 0, 1] to the device pointer
 // `out` with the first layer, whose source point is the pixel index

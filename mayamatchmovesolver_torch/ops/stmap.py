@@ -19,7 +19,10 @@ as an RGBA float32 ST-map (R=S, G=T, B=0, A=1).
                       plain version on the CPU and for Passthrough.
   stmap_stack_torch — a lens-layer stack in plain PyTorch, any device.
   stmap_stack       — a lens-layer stack: on a CUDA device one kernel
-                      launch a 3DE layer, on the CPU stmap_stack_torch.
+                      launch a 3DE layer, or one for an undistort stack
+                      (counted also in
+                      profiler.counters["stmap.stack_launches"]); on the
+                      CPU stmap_stack_torch.
 
 There is no fallback: on CUDA a 3DE layer launches its kernel or raises.
 
@@ -241,13 +244,21 @@ def _packed_launch_args(st_map, layers, direction, from_pixels, records,
                           st_map.device.index))
 
 
+def _fused_stack(direction, layers):
+    """Whether csrc/stmap.cu's launch maps a pack launch's `layers` layers
+    in one stmap_stack_kernel launch: an undistort stack of two or more,
+    its points chained in registers and the map written once.  Else it
+    launches the map kernel once a layer."""
+    return direction == "undistort" and layers >= 2
+
+
 def _launch_packed(st_map, layers, film_back, direction, from_pixels):
     """The lens stack `layers` (3DE models, in application order) on the
     (H, W, 4) float32 CUDA map `st_map`, its parameters packed on the
     map's device (_packed_launch_args) into a buffer allocated here: one
     pack launch for every _PACK_LAYERS layers, from the records of the
-    whole stack (at most one read to the host, _field_records).  Counts
-    the launches."""
+    whole stack (at most one read to the host, _field_records), then the
+    map launches (_fused_stack).  Counts the launches."""
     device = st_map.device
     keep = []
     records = _field_records(*_lens_fields(film_back, layers), device, keep)
@@ -257,14 +268,21 @@ def _launch_packed(st_map, layers, film_back, direction, from_pixels):
     for first in range(0, len(layers), _PACK_LAYERS):
         chunk = layers[first:first + _PACK_LAYERS]
         at = head + per_layer * first
+        from_pixel = int(from_pixels and first == 0)
         function, args = _packed_launch_args(
-            st_map, chunk, direction, from_pixels and first == 0,
+            st_map, chunk, direction, from_pixel,
             records[:head] + records[at:at + per_layer * len(chunk)],
             params.data_ptr() + 4 * _PARAM_COUNT * first)
         _kernels.launch(device, function, *args)
         profiler.counters["stmap.device_packs"] += 1
-    profiler.counters["stmap.launches"] += int(from_pixels)
-    profiler.counters["stmap_layer.launches"] += len(layers) - from_pixels
+        # A launch from the pixel index counts in "stmap.launches", one
+        # from a map in "stmap_layer.launches"; a fused stack is one of
+        # either, counted also in "stmap.stack_launches".
+        fused = _fused_stack(direction, len(chunk))
+        profiler.counters["stmap.launches"] += from_pixel
+        profiler.counters["stmap_layer.launches"] += (
+            (1 if fused else len(chunk)) - from_pixel)
+        profiler.counters["stmap.stack_launches"] += int(fused)
 
 
 def _checked_size(width, height, direction):
@@ -383,11 +401,14 @@ def stmap_stack(models, film_back, width, height, direction="distort", *,
     reverse (the reference chains per-point virtual calls,
     lens_model.h:36-120); an empty stack is Passthrough; channels 2 and 3
     carry through.  On the CPU this is stmap_stack_torch.  On a CUDA
-    device every 3DE layer is one kernel launch — the first writes the
-    map from the pixel index (stmap_cuda's kernel), each further one
-    maps it in place (stmap_layer_cuda's) — after one pack launch for
-    every _PACK_LAYERS layers (see stmap_cuda); a Passthrough layer is
-    the identity and launches nothing; there is no fallback.
+    device, after one pack launch for every _PACK_LAYERS layers (see
+    stmap_cuda), a distort stack is one kernel launch a 3DE layer — the
+    first writes the map from the pixel index (stmap_cuda's kernel),
+    each further one maps it in place (stmap_layer_cuda's) — and an
+    undistort stack of two or more is one launch for those layers,
+    which chains them in registers and writes the map once, bit-equal
+    to a launch a layer (_fused_stack); a Passthrough layer is the
+    identity and launches nothing; there is no fallback.
     """
     device = torch.device(device)
     if device.type == "cpu":

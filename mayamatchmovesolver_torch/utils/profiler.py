@@ -25,8 +25,10 @@ The program's own instrumentation lives here too, one of each kind:
               record_function, of the user scope, gets none of a kernel
               launched outside an operator); a shared no-op otherwise.
   counters    integers counted at the same boundaries, always on:
-              "stmap.launches" and "stmap_layer.launches" (kernel
-              launches of ops/stmap.py's two C entry points),
+              "stmap.launches" and "stmap_layer.launches" (map kernel
+              launches of ops/stmap.py's two C entry points, from the
+              pixel index and from a map), "stmap.stack_launches" (those
+              of them that map an undistort stack in one launch),
               "warp.launches" (kernel launches of ops/warp.py's; those
               of its half-image instantiation also in
               "warp.half_launches"),

@@ -1,9 +1,10 @@
 """csrc/stmap.cu's arithmetic on the CPU: its pack kernel in Python
-floats (float64) and its map kernel in float32 numpy.
+floats (float64), its map kernel and its fused undistort stack kernel in
+float32 numpy.
 
 The CUDA kernels cannot run on the CPU; these transcriptions of
 pack_params_kernel (the lens's fields folded into the 22 floats a layer)
-and of the map kernel's per-pixel code, step for step, let the CPU tests
+and of the map kernels' per-pixel code, step for step, let the CPU tests
 hold the kernels' arithmetic, fed the fields as the wrapper hands them
 (ops/stmap.py::_lens_fields), to the plain versions.  They have to
 change together with csrc/stmap.cu.
@@ -147,6 +148,66 @@ def _fma(a, b, c):
     return wide.astype(np.float32)
 
 
+def _displace(core_id, c, x, y, ax, ay, neg):
+    """csrc/stmap.cu's displace: (ax, ay) + h(x, y), or with neg
+    (ax, ay) - h(x, y), for the core `core_id` and coefficients `c`."""
+    f = np.float32
+    sx, sy = (-x, -y) if neg else (x, y)
+    x2, y2 = x * x, y * y
+    r2 = x2 + y2
+    if core_id == CLASSIC:
+        r4 = r2 * r2
+        gx = _fma(c[0], x2, _fma(c[1], y2, c[4] * r4))
+        gy = _fma(c[2], x2, _fma(c[3], y2, c[5] * r4))
+        return _fma(sx, gx, ax), _fma(sy, gy, ay)
+    if core_id == RADIAL_DEG4:
+        rr = _fma(x, x, y2)
+        g = _fma(c[3], rr, c[0])
+        u, v = _fma(c[4], rr, c[1]), _fma(c[5], rr, c[2])
+        s = _fma(x, u, y * v)
+        k = _fma(f(2), s, rr * g)
+        srr = -rr if neg else rr
+        return _fma(sx, k, _fma(srr, u, ax)), _fma(sy, k, _fma(srr, v, ay))
+    d = x2 - y2
+    gx = _fma(r2, _fma(c[4], r2, _fma(c[6], d, c[0])),
+              d * _fma(c[8], d, c[2]))
+    gy = _fma(r2, _fma(c[5], r2, _fma(c[7], d, c[1])),
+              d * _fma(c[9], d, c[3]))
+    return _fma(sx, gx, ax), _fma(sy, gy, ay)
+
+
+def _frame_in(p, u, v):
+    """csrc/stmap.cu's frame_in: the source point to the core's input."""
+    a_in, b_in = p[10:14], p[14:16]
+    return (_fma(a_in[0], u, _fma(a_in[1], v, b_in[0])),
+            _fma(a_in[2], u, _fma(a_in[3], v, b_in[1])))
+
+
+def _frame_out(p, qx, qy):
+    """csrc/stmap.cu's frame_out: the core's output to S and T."""
+    a_out, b_out = p[16:20], p[20:]
+    return (_fma(a_out[0], qx, _fma(a_out[1], qy, b_out[0])),
+            _fma(a_out[2], qx, _fma(a_out[3], qy, b_out[1])))
+
+
+def _source_point(size, source):
+    """(u, v, channels 2 and 3) of a thread's first point: the pixel index
+    of a `size` = (width, height) image with [0, 1], or S and T of the
+    (H, W, 4) map `source` with its own channels 2 and 3."""
+    f = np.float32
+    if source is None:
+        width, height = size
+        v, u = np.meshgrid(np.arange(height, dtype=f),
+                           np.arange(width, dtype=f), indexing="ij")
+        return u, v, np.stack([np.zeros_like(u), np.ones_like(u)], axis=-1)
+    source = np.asarray(source, f)
+    return source[..., 0], source[..., 1], source[..., 2:]
+
+
+def _texels(s, t, rest):
+    return np.concatenate([np.stack([s, t], axis=-1), rest], axis=-1)
+
+
 def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
                     source=None):
     """csrc/stmap.cu's per-pixel arithmetic, transcribed step for step to
@@ -154,54 +215,46 @@ def _emulate_kernel(core_id, params, distort, iterations, *, size=None,
     pack_params.  The point comes from the pixel index of a `size` =
     (width, height) image, or (FROM_MAP) from S and T of the (H, W, 4)
     map `source`, whose channels 2 and 3 carry through."""
-    f = np.float32
     p = params.astype(np.float32)
-    c, a_in, b_in, a_out, b_out = p[:10], p[10:14], p[14:16], p[16:20], p[20:]
-
-    def displace(x, y, ax, ay, neg):
-        """(ax, ay) + h(x, y), or with neg (ax, ay) - h(x, y)."""
-        sx, sy = (-x, -y) if neg else (x, y)
-        x2, y2 = x * x, y * y
-        r2 = x2 + y2
-        if core_id == CLASSIC:
-            r4 = r2 * r2
-            gx = _fma(c[0], x2, _fma(c[1], y2, c[4] * r4))
-            gy = _fma(c[2], x2, _fma(c[3], y2, c[5] * r4))
-            return _fma(sx, gx, ax), _fma(sy, gy, ay)
-        if core_id == RADIAL_DEG4:
-            rr = _fma(x, x, y2)
-            g = _fma(c[3], rr, c[0])
-            u, v = _fma(c[4], rr, c[1]), _fma(c[5], rr, c[2])
-            s = _fma(x, u, y * v)
-            k = _fma(f(2), s, rr * g)
-            srr = -rr if neg else rr
-            return _fma(sx, k, _fma(srr, u, ax)), _fma(sy, k, _fma(srr, v, ay))
-        d = x2 - y2
-        gx = _fma(r2, _fma(c[4], r2, _fma(c[6], d, c[0])),
-                  d * _fma(c[8], d, c[2]))
-        gy = _fma(r2, _fma(c[5], r2, _fma(c[7], d, c[1])),
-                  d * _fma(c[9], d, c[3]))
-        return _fma(sx, gx, ax), _fma(sy, gy, ay)
-
-    if source is None:
-        width, height = size
-        v, u = np.meshgrid(np.arange(height, dtype=f),
-                           np.arange(width, dtype=f), indexing="ij")
-        rest = np.stack([np.zeros_like(u), np.ones_like(u)], axis=-1)
-    else:
-        source = np.asarray(source, f)
-        u, v, rest = source[..., 0], source[..., 1], source[..., 2:]
-    tx = _fma(a_in[0], u, _fma(a_in[1], v, b_in[0]))
-    ty = _fma(a_in[2], u, _fma(a_in[3], v, b_in[1]))
+    u, v, rest = _source_point(size, source)
+    tx, ty = _frame_in(p, u, v)
     if distort:
         qx, qy = tx, ty
         for _ in range(iterations + 1):
-            qx, qy = displace(qx, qy, tx, ty, True)
+            qx, qy = _displace(core_id, p[:10], qx, qy, tx, ty, True)
     else:
-        qx, qy = displace(tx, ty, tx, ty, False)
-    s = _fma(a_out[0], qx, _fma(a_out[1], qy, b_out[0]))
-    t = _fma(a_out[2], qx, _fma(a_out[3], qy, b_out[1]))
-    return np.concatenate([np.stack([s, t], axis=-1), rest], axis=-1)
+        qx, qy = _displace(core_id, p[:10], tx, ty, tx, ty, False)
+    return _texels(*_frame_out(p, qx, qy), rest)
+
+
+# csrc/stmap.cu's CORE_BITS: the bits of a layer's core id in the fused
+# stack kernel's `cores`.
+CORE_BITS = 2
+
+
+def stack_cores(core_ids):
+    """The `cores` argument csrc/stmap.cu's launch hands stmap_stack_kernel
+    for layers of these core ids: CORE_BITS a layer, the first lowest."""
+    cores = 0
+    for layer, core_id in enumerate(core_ids):
+        cores |= core_id << (CORE_BITS * layer)
+    return cores
+
+
+def _emulate_stack_kernel(cores, layers, params, *, size=None, source=None):
+    """csrc/stmap.cu's stmap_stack_kernel, transcribed step for step to
+    float32 numpy over the whole image: the first point as _emulate_kernel
+    takes it, then `layers` layers of undistort, layer i's core read from
+    the bits of `cores` and its 22 floats from params[i], the point
+    handed from each layer's frame_out to the next one's frame_in."""
+    u, v, rest = _source_point(size, source)
+    for layer in range(layers):
+        p = params[layer].astype(np.float32)
+        core_id = (cores >> (CORE_BITS * layer)) & ((1 << CORE_BITS) - 1)
+        tx, ty = _frame_in(p, u, v)
+        qx, qy = _displace(core_id, p[:10], tx, ty, tx, ty, False)
+        u, v = _frame_out(p, qx, qy)
+    return _texels(u, v, rest)
 
 
 def emulated_map(model, fb, width, height, direction, source=None):
@@ -217,10 +270,38 @@ def emulated_map(model, fb, width, height, direction, source=None):
 
 
 def emulated_stack(models, fb, width, height, direction):
-    """A lens stack as the CUDA route of stmap_stack runs it: the first
-    layer from the pixel index, each further one from the map."""
+    """A lens stack a launch a layer: the first layer from the pixel
+    index, each further one from the map (the CUDA route of stmap_stack
+    for a distort stack; emulated_launches for any)."""
     models = list(models) if direction == "distort" else list(models)[::-1]
     out = None
     for model in models:
         out = emulated_map(model, fb, width, height, direction, source=out)
+    return out
+
+
+def emulated_launches(models, fb, width, height, direction, source=None):
+    """A lens stack as csrc/stmap.cu's launch maps it: the layers in
+    application order, one pack for every _PACK_LAYERS of them, and for
+    each pack an undistort stack of two or more in one
+    stmap_stack_kernel launch (ops/stmap.py::_fused_stack), any other
+    one launch a layer; the first point from the pixel index, or with
+    `source` from that map."""
+    models = list(models) if direction == "distort" else list(models)[::-1]
+    out = source
+    for first in range(0, len(models), t_stmap._PACK_LAYERS):
+        chunk = models[first:first + t_stmap._PACK_LAYERS]
+        if not t_stmap._fused_stack(direction, len(chunk)):
+            for model in chunk:
+                out = emulated_map(model, fb, width, height, direction,
+                                   source=out)
+            continue
+        packed = [kernel_params(model, fb, direction,
+                                (width, height) if out is None and i == 0
+                                else None)
+                  for i, model in enumerate(chunk)]
+        out = _emulate_stack_kernel(
+            stack_cores([core for core, _ in packed]), len(chunk),
+            [params for _, params in packed], size=(width, height),
+            source=out)
     return out

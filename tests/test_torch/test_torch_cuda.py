@@ -10,8 +10,8 @@ counters there, the image warp's kernel (csrc/warp.cu) against the eager
 warp on the card and the float64 warp on the CPU at 1e-6 (a float16
 image through a float32 map too), a lens file's radial map at VENICE 2
 8.6K size, the two-layer lens stack of a radial calibration under a
-classic layer with a half plate warped through it, and the no-fallback
-rule.
+classic layer with a half plate warped through it, the fused undistort
+stack kernel bit-equal to a launch a layer, and the no-fallback rule.
 
 This file imports nothing of jax, so it runs on a machine with a GPU and
 no JAX:
@@ -134,10 +134,11 @@ def _launches():
 @pytest.mark.cuda
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 def test_stmap_stack_on_cuda_launches_the_kernel_once(direction):
-    """A stack runs no eager PyTorch layer on the card: its first layer is
-    one stmap_cuda launch, every further 3DE layer one stmap_layer_cuda
-    launch, a Passthrough layer none; and the map equals the all-plain
-    stack on the card."""
+    """A stack runs no eager PyTorch layer on the card: a distort stack's
+    first layer is one stmap_cuda launch, every further 3DE layer one
+    stmap_layer_cuda launch; an undistort stack of two 3DE layers is one
+    launch from the pixel index; a Passthrough layer launches nothing;
+    and the map equals the all-plain stack on the card."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from mayamatchmovesolver_torch.models import tde
@@ -146,16 +147,17 @@ def test_stmap_stack_on_cuda_launches_the_kernel_once(direction):
     radial, _ = torch_model("radial_deg4", device="cuda")
     radial = type(radial)(**{k: v * 0.2 for k, v in vars(radial).items()})
     stack = [classic, radial]
+    layer = int(direction == "distort")
     before = _launches()
     got = t_stmap.stmap(stack, fb, 640, 360, direction, device="cuda")
-    assert _launches() == (before[0] + 1, before[1] + 1)
+    assert _launches() == (before[0] + 1, before[1] + layer)
     got2 = t_stmap.stmap_stack(
         [tde.Passthrough(), classic, tde.Passthrough(), radial], fb, 640,
         360, direction, device="cuda")
-    assert _launches() == (before[0] + 2, before[1] + 2)
+    assert _launches() == (before[0] + 2, before[1] + 2 * layer)
     only = t_stmap.stmap_stack([tde.Passthrough()], fb, 640, 360, direction,
                                device="cuda")
-    assert _launches() == (before[0] + 2, before[1] + 2)
+    assert _launches() == (before[0] + 2, before[1] + 2 * layer)
     want = t_stmap.stmap_stack_torch(stack, fb, 640, 360, direction,
                                      device="cuda")
     torch.cuda.synchronize()
@@ -329,8 +331,9 @@ VENICE2_STACK = VENICE2_RADIAL.replace(
 def test_stmap_stack_of_radial_and_classic_layers_warps_half_plates(
         direction):
     """The stack cell's two layers from its lens file at 1080 x 720: one
-    pack, one map launch from the pixel index and one layer launch a
-    call, no host read; the map within 1e-6 of the CPU transcription of
+    pack and one map launch from the pixel index a call, then one layer
+    launch (distort) or none (undistort: the fused stack kernel), no host
+    read; the map within 1e-6 of the CPU transcription of
     the kernels' arithmetic (_torch_stmap_emulation.emulated_stack) and
     within 2e-5 of the plain stack on the card; a half plate warped
     through it is one half launch, bit-equal to the eager warp."""
@@ -350,8 +353,11 @@ def test_stmap_stack_of_radial_and_classic_layers_warps_half_plates(
         models = layers.models_at(frame)
         before = counters.copy()
         got = t_stmap.stmap(models, fb, 1080, 720, direction, device="cuda")
+        fused = int(direction == "undistort")
         for key, n in (("host_reads", 0), ("stmap.device_packs", 1),
-                       ("stmap.launches", 1), ("stmap_layer.launches", 1)):
+                       ("stmap.launches", 1),
+                       ("stmap_layer.launches", 1 - fused),
+                       ("stmap.stack_launches", fused)):
             assert counters[key] == before[key] + n, (frame, key)
         plain = t_stmap.stmap_stack_torch(models, fb, 1080, 720, direction,
                                           device="cuda")
@@ -371,6 +377,88 @@ def test_stmap_stack_of_radial_and_classic_layers_warps_half_plates(
         radial_alone = t_stmap.stmap(models[:1], fb, 1080, 720, direction,
                                      device="cuda")
         assert float((got - radial_alone).abs().max()) > 1e-3
+
+
+def _two_pass(layers, fb, width, height, start=None):
+    """An undistort stack (layers in application order) a launch a layer
+    through the single-layer entries: stmap_cuda for the first layer, or
+    with `start` stmap_layer_cuda on a copy of that map, then
+    stmap_layer_cuda for each further one."""
+    if start is None:
+        out = t_stmap.stmap_cuda(layers[0], fb, width, height, "undistort",
+                                 device="cuda")
+        layers = layers[1:]
+    else:
+        out = start.clone()
+    for model in layers:
+        t_stmap.stmap_layer_cuda(out, model, fb, "undistort")
+    return out
+
+
+def _fused(layers, fb, width, height, start=None):
+    """The same stack in one call: from the pixel index by stmap_stack,
+    from a copy of `start` by the wrapper's launch on that map; one pack
+    and one fused launch, counted in stmap.stack_launches."""
+    before = counters.copy()
+    if start is None:
+        out = t_stmap.stmap_stack(layers[::-1], fb, width, height,
+                                  "undistort", device="cuda")
+    else:
+        out = start.clone()
+        t_stmap._launch_packed(out, layers, fb, "undistort", False)
+    assert counters["stmap.stack_launches"] == \
+        before["stmap.stack_launches"] + 1
+    assert counters["stmap.launches"] + counters["stmap_layer.launches"] \
+        == before["stmap.launches"] + before["stmap_layer.launches"] + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(a, b) for a in MODELS for b in MODELS])
+def test_fused_undistort_stack_is_bit_equal_to_a_launch_a_layer(pair):
+    """csrc/stmap.cu's stmap_stack_kernel for every ordered pair of the
+    four models (and so every pair of cores) at a ragged 1921 x 1081,
+    from the pixel index and from an irregular map whose channels 2 and
+    3 hold other numbers: the map is the one the single-layer entries
+    write a launch a layer, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    width, height = 1921, 1081
+    layers = [weaker(torch_model(name, device="cuda")[0], 0.3)
+              for name in pair]
+    _, fb = torch_model("classic", device="cuda")
+    start = t_stmap.stmap_cuda(weaker(torch_model("radial_deg4",
+                                                  device="cuda")[0], 0.3),
+                               fb, width, height, "undistort", device="cuda")
+    start[..., 2:] = torch.rand((height, width, 2), device="cuda")
+    for source in (None, start):
+        got = _fused(layers, fb, width, height, source)
+        want = _two_pass(layers, fb, width, height, source)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (pair, source is None)
+        assert float((got - t_stmap.stmap_cuda(
+            layers[0], fb, width, height, "undistort",
+            device="cuda")).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_undistort_stack_of_the_cell_is_bit_equal_at_size():
+    """The stack cell's lens file at 8640 x 5760, undistort: the classic
+    layer from the pixel index, then the radial one, in one fused launch,
+    bit-equal to a launch a layer, at both frames of the file."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from mayamatchmovesolver_torch.io import lensfile
+
+    layers = lensfile.parse_string(VENICE2_STACK)
+    fb = layers.film_back()
+    for frame in (1001, 1002):
+        order = layers.models_at(frame)[::-1]
+        got = _fused(order, fb, 8640, 5760)
+        want = _two_pass(order, fb, 8640, 5760)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), frame
+        del got, want
 
 
 @pytest.mark.cuda
@@ -568,8 +656,11 @@ def test_device_packed_maps_match_plain_and_the_emulation(name, direction):
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 def test_stmap_stack_packs_once_for_its_layers(direction):
     """A stack is one pack launch for up to eight layers: two layers one,
-    nine two; no host read; a stack held on the card gives the same map
-    as the same stack in CPU tensors, handed over by value."""
+    nine two; a distort stack one map launch a layer, an undistort one
+    one for each pack (the fused stack kernel for eight layers, the
+    ninth alone from the map); no host read; a stack held on the card
+    gives the same map as the same stack in CPU tensors, handed over by
+    value."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     lenses = [torch_model(n, device="cuda")[0] for n in MODELS]
@@ -584,9 +675,11 @@ def test_stmap_stack_packs_once_for_its_layers(direction):
             before = counters.copy()
             got = t_stmap.stmap_stack(stack, film_back, 640, 360, direction,
                                       device="cuda")
+            layer_launches = (len(layers) - 1 if direction == "distort"
+                              else packs - 1)
             for key, n in (("host_reads", 0), ("stmap.device_packs", packs),
                            ("stmap.launches", 1),
-                           ("stmap_layer.launches", len(layers) - 1)):
+                           ("stmap_layer.launches", layer_launches)):
                 assert counters[key] == before[key] + n, (len(layers), key)
             if stack is layers:
                 want = got

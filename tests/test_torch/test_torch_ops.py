@@ -28,7 +28,7 @@ import mayamatchmovesolver_tpu.ops.lensdeform as j_deform
 import mayamatchmovesolver_tpu.ops.stmap as j_stmap
 import mayamatchmovesolver_tpu.ops.warp as j_warp
 from _torch_port_cases import to_numpy
-from _torch_stmap_emulation import emulated_stack
+from _torch_stmap_emulation import emulated_launches
 from _torch_stmap_models import FILM_BACK, MODELS
 
 ATOL = 2e-5
@@ -102,15 +102,17 @@ def test_stmap_stack_matches(stack, direction):
 @pytest.mark.parametrize("direction", ["distort", "undistort"])
 @pytest.mark.parametrize("stack", list(STACKS))
 def test_stack_through_the_layer_kernel_arithmetic_matches(stack, direction):
-    """The CUDA route of stmap_stack, emulated: the first layer by the
-    kernel's arithmetic from the pixel index, every further layer by its
-    layer variant from the map before it, against the all-plain stack and
+    """The CUDA route of stmap_stack, emulated: a distort stack's first
+    layer by the kernel's arithmetic from the pixel index, every further
+    layer by its layer variant from the map before it, an undistort
+    stack by the fused kernel's layers in registers, against the
+    all-plain stack and
     the JAX stack (its first layer through the Pallas kernel in interpret
     mode, and all in XLA).  2e-5: float32 against float32 and float64,
     another operation order in every layer."""
     t_stack, t_fb = _models("torch", STACKS[stack])
     j_stack, j_fb = _models("jax", STACKS[stack])
-    got = emulated_stack(t_stack, t_fb, WIDTH, HEIGHT, direction)
+    got = emulated_launches(t_stack, t_fb, WIDTH, HEIGHT, direction)
     assert got.shape == (HEIGHT, WIDTH, 4) and got.dtype == np.float32
     plain = t_stmap.stmap_stack_torch(t_stack, t_fb, WIDTH, HEIGHT,
                                       direction, device="cpu")

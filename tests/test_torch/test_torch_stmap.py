@@ -16,6 +16,7 @@ on the card.
 """
 
 import dataclasses
+import itertools
 import json
 import pathlib
 
@@ -128,6 +129,69 @@ def test_layer_kernel_arithmetic_reproduces_plain_layer(name, direction):
         j_model, j_fb, np.asarray(to_numpy(source)[..., :2], np.float64)
         - 0.5)) + 0.5
     np.testing.assert_allclose(emulated[..., :2], want, atol=ATOL)
+
+
+# Undistort stacks that csrc/stmap.cu maps in one stmap_stack_kernel
+# launch: every ordered pair of the four models, three layers, eight
+# (one pack) and nine (the ninth layer a second pack's one launch, from
+# the map).
+FUSED_STACKS = dict(
+    {"%s,%s" % pair: pair for pair in itertools.product(NAMES, repeat=2)},
+    three=("anamorphic_deg4", "classic", "radial_deg4"),
+    eight=NAMES * 2, nine=NAMES * 2 + NAMES[:1])
+
+
+@pytest.mark.parametrize("source", ["pixels", "map"])
+@pytest.mark.parametrize("stack", list(FUSED_STACKS))
+def test_fused_undistort_stack_is_a_launch_a_layer(stack, source):
+    """The fused stack kernel's arithmetic as the launcher hands it the
+    layers (_torch_stmap_emulation.emulated_launches: the packed core
+    ids and each layer's floats) is the map of a launch a layer
+    (emulated_stack) bit for bit in float32, from the pixel index and
+    from an irregular map whose channels 2 and 3 carry through; and
+    within 2e-5 of the plain stack (float32, another operation
+    order)."""
+    names = FUSED_STACKS[stack]
+    models = [weaker(torch_model(n)[0], 0.3 if len(names) < 8 else 0.1)
+              for n in names]
+    _, fb = torch_model("classic")
+    start = None
+    if source == "map":
+        start = t_stmap.stmap_torch(weaker(torch_model("radial_deg4")[0],
+                                           0.3), fb, WIDTH, HEIGHT,
+                                    "undistort", device="cpu")
+        start[..., 2:] = torch.as_tensor(np.random.RandomState(5).uniform(
+            -1, 1, (HEIGHT, WIDTH, 2)).astype(np.float32))
+    got = emulation.emulated_launches(
+        models, fb, WIDTH, HEIGHT, "undistort",
+        source=None if start is None else to_numpy(start))
+    assert got.shape == (HEIGHT, WIDTH, 4) and got.dtype == np.float32
+    if start is None:
+        want = emulation.emulated_stack(models, fb, WIDTH, HEIGHT,
+                                        "undistort")
+        plain = t_stmap.stmap_stack_torch(models, fb, WIDTH, HEIGHT,
+                                          "undistort", device="cpu")
+    else:
+        want = plain = start
+        for model in models[::-1]:
+            want = emulated_map(model, fb, WIDTH, HEIGHT, "undistort",
+                                source=want)
+            plain = t_stmap.stmap_layer_torch(plain, model, fb, "undistort")
+        want = np.asarray(want)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, to_numpy(plain), atol=ATOL)
+    assert float(np.abs(got - emulated_map(
+        models[-1], fb, WIDTH, HEIGHT, "undistort",
+        source=None if start is None else to_numpy(start))).max()) > 1e-4
+
+
+def test_stack_cores_pack_each_layers_core_in_two_bits():
+    """csrc/stmap.cu's `cores`: CORE_BITS a layer, the first lowest, as
+    the fused kernel's transcription reads them back; eight anamorphic
+    layers fill sixteen bits."""
+    assert emulation.stack_cores([0, 1, 2]) == 0b100100
+    assert emulation.stack_cores([2] * 8) == 0xAAAA
+    assert emulation.stack_cores([]) == 0
 
 
 def _guarded_anamorphic_factors(c, x, y):

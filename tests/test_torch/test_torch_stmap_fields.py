@@ -180,6 +180,24 @@ def test_model_kind_refuses_what_has_no_kernel():
         t_stmap._model_kind(t_models.Passthrough())
 
 
+ENTRIES = ("mmsolver_stmap", "mmsolver_stmap_layer")
+
+
+def _stand_in_launches(monkeypatch):
+    """The C entry points and _kernels.launch replaced by stand-ins (a CPU
+    map then takes them): returns the list each launch's (device, entry
+    point, arguments) is appended to."""
+    calls = []
+    monkeypatch.setattr(t_stmap._kernels, "stmap_functions",
+                        lambda: ENTRIES)
+    monkeypatch.setattr(t_stmap._kernels, "launch",
+                        lambda device, function, *args: calls.append(
+                            (device, function, args)))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 7, raising=False)
+    return calls
+
+
 @pytest.mark.parametrize("from_pixels", [True, False])
 @pytest.mark.parametrize("count", [1, 8, 9, 17])
 def test_launch_packed_hands_each_launch_its_records(monkeypatch, count,
@@ -189,14 +207,7 @@ def test_launch_packed_hands_each_launch_its_records(monkeypatch, count,
     layers, each with the film back's records and its own layers', their
     kinds and its slice of one parameter buffer; only the first from the
     pixel index, and only where the map is made from it."""
-    calls = []
-    entries = ("mmsolver_stmap", "mmsolver_stmap_layer")
-    monkeypatch.setattr(t_stmap._kernels, "stmap_functions", lambda: entries)
-    monkeypatch.setattr(t_stmap._kernels, "launch",
-                        lambda device, function, *args: calls.append(
-                            (device, function, args)))
-    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
-                        lambda index: 7, raising=False)
+    calls = _stand_in_launches(monkeypatch)
     names = list(MODELS)
     layers = [torch_model(names[i % 4])[0] for i in range(count)]
     _, fb = torch_model("classic")
@@ -211,7 +222,7 @@ def test_launch_packed_hands_each_launch_its_records(monkeypatch, count,
     for n, ((device, function, args), chunk) in enumerate(zip(calls,
                                                               chunks)):
         assert device == CPU
-        assert function == entries[not (from_pixels and n == 0)]
+        assert function == ENTRIES[not (from_pixels and n == 0)]
         at = 4 * (5 + t_stmap._MODEL_FIELDS * 8 * n)
         want = records[:4 * 5] + records[
             at:at + 4 * t_stmap._MODEL_FIELDS * len(chunk)]
@@ -221,11 +232,54 @@ def test_launch_packed_hands_each_launch_its_records(monkeypatch, count,
         assert args[6] == t_stmap._records(len(chunk)).pack(*want)
         assert args[7] == params + 4 * t_stmap._PARAM_COUNT * 8 * n
         assert args[8] == 7
+    # Each undistort chunk is one map launch: of the fused stack kernel
+    # where it has two or more layers.
     for key, n in (("stmap.device_packs", len(chunks)),
                    ("stmap.launches", int(from_pixels)),
-                   ("stmap_layer.launches", count - from_pixels),
+                   ("stmap_layer.launches", len(chunks) - from_pixels),
+                   ("stmap.stack_launches",
+                    sum(len(chunk) > 1 for chunk in chunks)),
                    ("host_reads", 0)):
         assert counters[key] == before[key] + n, key
+
+
+# (direction, layers, from the pixel index) of a call, and what it adds
+# to the counters: packs, stmap.launches, stmap_layer.launches,
+# stmap.stack_launches.
+COUNTED_CALLS = {
+    "one_layer": ("undistort", 1, True, (1, 1, 0, 0)),
+    "one_layer_on_a_map": ("distort", 1, False, (1, 0, 1, 0)),
+    "distort_stack": ("distort", 3, True, (1, 1, 2, 0)),
+    "distort_stack_on_a_map": ("distort", 3, False, (1, 0, 3, 0)),
+    "undistort_stack_of_2": ("undistort", 2, True, (1, 1, 0, 1)),
+    "undistort_stack_of_2_on_a_map": ("undistort", 2, False, (1, 0, 1, 1)),
+    "undistort_stack_of_9": ("undistort", 9, True, (2, 1, 1, 1)),
+    "undistort_stack_of_9_on_a_map": ("undistort", 9, False, (2, 0, 2, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(COUNTED_CALLS))
+def test_launch_packed_counts_each_kind_of_call(monkeypatch, case):
+    """What each kind of call adds to the counters, with stand-ins for
+    the C entry points: a launch from the pixel index counts in
+    stmap.launches, one from a map in stmap_layer.launches; an undistort
+    pack of two or more layers is one launch (csrc/stmap.cu's fused
+    stack kernel), counted also in stmap.stack_launches; the rest one
+    launch a layer; no host read."""
+    direction, count, from_pixels, want = COUNTED_CALLS[case]
+    calls = _stand_in_launches(monkeypatch)
+    names = list(MODELS)
+    layers = [torch_model(names[i % 4])[0] for i in range(count)]
+    _, fb = torch_model("classic")
+    before = counters.copy()
+    t_stmap._launch_packed(torch.zeros(3, 5, 4), layers, fb, direction,
+                           from_pixels)
+    keys = ("stmap.device_packs", "stmap.launches", "stmap_layer.launches",
+            "stmap.stack_launches")
+    assert tuple(counters[k] - before[k] for k in keys) == want
+    assert counters["host_reads"] == before["host_reads"]
+    assert [args[4] for _, _, args in calls] == [
+        min(count - i, 8) for i in range(0, count, 8)]
 
 
 @pytest.mark.parametrize("current", [0, 1])
