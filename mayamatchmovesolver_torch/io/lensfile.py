@@ -21,9 +21,10 @@ A lens file's export path to ST maps is
 whose models and film back are Python floats: the ST-map wrapper packs
 them with no device-to-host read, and a stack of N 3DE layers is N
 kernel launches on a CUDA device.  models_at is the span
-"lensfile.models_at" (utils/profiler.py) and counts its calls in
-profiler.counters["lensfile.models_at"] and the models it returns in
-profiler.counters["lensfile.layers"].
+"lensfile.models_at" (utils/profiler.py: an operator record under a
+running torch.profiler capture, and logged on the host clock while spans
+are on) and counts its calls in profiler.counters["lensfile.models_at"]
+and the models it returns in profiler.counters["lensfile.layers"].
 """
 
 import dataclasses

@@ -46,7 +46,10 @@ A CUDA call is the span "stmap.call" (utils/profiler.py), which holds
 "stmap.launch" (the records, the allocations and the launches); inside
 it a transfer is "stmap.host_read", counted in
 profiler.counters["host_reads"], and each launch of the pack kernel
-counts in profiler.counters["stmap.device_packs"].
+counts in profiler.counters["stmap.device_packs"].  Under a running
+torch.profiler capture the spans are operator records, so the pack and
+map kernels are put down to "stmap.launch"; while spans are on each is
+also logged on the host clock (profiler.span_log).
 """
 
 import array

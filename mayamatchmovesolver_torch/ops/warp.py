@@ -10,7 +10,11 @@ ST-map kernel (ops/stmap.py), with the reference's own gather arithmetic
                      (csrc/warp.cu, mmsolver_warp), counted in
                      profiler.counters["warp.launches"]; elsewhere
                      _bilinear_sample.  There is no fallback: on CUDA the
-                     kernel runs or the call raises.
+                     kernel runs or the call raises.  The call is the
+                     span "warp.call", the launch inside it the span
+                     "warp.launch" (utils/profiler.py): under a running
+                     torch.profiler capture both are operator records,
+                     and the kernel is put down to "warp.launch".
 
 The image and the map are both float32, both float64, or a float16 image
 (a half-float plate) with a float32 map; the result takes their promoted
@@ -103,7 +107,7 @@ def _warp_cuda(image, stmap):
                          % _INT_MAX)
     out = torch.empty((stmap.shape[0], stmap.shape[1], image.shape[2]),
                       dtype=stmap.dtype, device=image.device)
-    with profiler.kernel_op("mmsolver_warp"):
+    with span("warp.launch"):
         _kernels.launch(image.device, _kernels.warp_function(),
                         *_launch_args(image, stmap, out))
     profiler.counters["warp.launches"] += 1
@@ -121,8 +125,8 @@ def warp_image(image, stmap):
     promoted dtype (a float16 image through a float32 map gives float32).
     On a CUDA device this is one launch of the kernel (_warp_cuda), which
     raises ValueError for what it does not take; elsewhere
-    _bilinear_sample.  The call is the span "warp.call"
-    (utils/profiler.py)."""
+    _bilinear_sample.  The call is the span "warp.call", and on a CUDA
+    device the launch inside it "warp.launch" (utils/profiler.py)."""
     with span("warp.call"):
         if image.is_cuda or stmap.is_cuda:
             return _warp_cuda(image, stmap)

@@ -7,23 +7,23 @@ test.  Here: wall-clock phase timers and cProfile (host code, copied),
 plus a torch.profiler trace of the host and CUDA timeline in the place
 of the reference's jax.profiler trace.
 
-The program's own instrumentation lives here too, one of each kind:
+The program's own instrumentation lives here too:
 
-  span(name)  a host range "mmsolver.<name>" at a layer boundary.  Off
-              (the default) it costs one flag test and returns a shared
-              no-op context; under tracing() it is a
-              torch.profiler.record_function, so a running profiler
-              capture holds it on the same clock as the CUDA kernels,
-              nested in the spans and ranges around it.
+  span(name)  a layer boundary, "mmsolver.<name>".  Off (no running
+              torch.profiler capture and no tracing()) it costs one flag
+              test and one profiler-state check and returns a shared
+              no-op context.  Under a running capture, whatever tracing()
+              says, it is an operator record, as an aten op is: the
+              capture holds it on the CUDA kernels' clock, nested in the
+              spans and ranges around it, with no device-side copy of its
+              own, and a hand kernel launched inside it is put down to
+              the innermost span, so its device time counts in every
+              range around it.  Under tracing() with no capture it
+              records nothing in any profiler.  While on, each span also
+              appends (name, start, end), in time.perf_counter() seconds,
+              to a bounded in-memory log (span_log()); a span's parent is
+              the innermost logged span whose interval holds it.
   tracing()   turns spans on for its block; xla_trace enters it.
-  kernel_op(name)
-              a hand kernel's launch as an operator of its own, as each
-              aten op is: under a running torch.profiler capture a
-              record of the profiler's operator scope, whatever tracing()
-              says, so the profiler puts the kernel down to it and its
-              device time to the ranges around it (a span or a caller's
-              record_function, of the user scope, gets none of a kernel
-              launched outside an operator); a shared no-op otherwise.
   counters    integers counted at the same boundaries, always on:
               "stmap.launches" and "stmap_layer.launches" (map kernel
               launches of ops/stmap.py's two C entry points, from the
@@ -49,6 +49,12 @@ import torch
 counters = collections.Counter()
 
 _tracing = False
+# The spans' log: (name, start, end) in time.perf_counter() seconds, the
+# oldest dropped once it holds SPAN_LOG_LENGTH.
+SPAN_LOG_LENGTH = 65536
+_log = collections.deque(maxlen=SPAN_LOG_LENGTH)
+_profiling = torch.autograd._profiler_enabled
+_Record = torch._C._profiler._RecordFunctionFast
 
 
 class _Off:
@@ -64,20 +70,40 @@ class _Off:
 _OFF = _Off()
 
 
+class _Span:
+    """A span on: logged, and an operator record under a capture."""
+
+    __slots__ = ("name", "record", "start")
+
+    def __init__(self, name, record):
+        self.name = name
+        self.record = record
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        if self.record is not None:
+            self.record.__enter__()
+
+    def __exit__(self, *exc):
+        if self.record is not None:
+            self.record.__exit__(*exc)
+        _log.append((self.name, self.start, time.perf_counter()))
+
+
 def span(name):
-    """A profiler range "mmsolver.<name>" around a block while tracing()
-    is on; a shared no-op context otherwise."""
-    if not _tracing:
+    """The layer boundary `name` around a block: while a torch.profiler
+    capture runs, an operator record "mmsolver.<name>", and logged; under
+    tracing() alone, logged only; a shared no-op context otherwise."""
+    profiling = _profiling()
+    if not (_tracing or profiling):
         return _OFF
-    return torch.profiler.record_function("mmsolver." + name)
+    return _Span(name, _Record("mmsolver." + name) if profiling else None)
 
 
-def kernel_op(name):
-    """The launch of the hand kernel `name` as an operator record under a
-    running torch.profiler capture; a shared no-op otherwise."""
-    if not torch.autograd._profiler_enabled():
-        return _OFF
-    return torch._C._profiler._RecordFunctionFast(name)
+def span_log():
+    """The spans logged so far, oldest first, as a list of (name, start,
+    end) in time.perf_counter() seconds."""
+    return list(_log)
 
 
 @contextlib.contextmanager

@@ -1,0 +1,10 @@
+"""Host milliseconds a profiled frame spends in the ST-map wrapper: the
+summed durations of its top-level spans "stmap.call" (ops/stmap.py's
+CUDA calls), the median over the frames that hold one.  The program's
+span log (common/program_log.py), on the profiler's slowed host."""
+
+from mmbench.common import program_log
+
+
+def read(records):
+    return program_log.median_ms(records, "stmap.call")

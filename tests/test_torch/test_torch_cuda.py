@@ -9,7 +9,9 @@ ALEXA LF open-gate size, the ST-map wrapper's spans and
 counters there, the image warp's kernel (csrc/warp.cu) against the eager
 warp on the card and the float64 warp on the CPU at 1e-6 (a float16
 image through a float32 map too), a lens file's radial map at VENICE 2
-8.6K size, the two-layer lens stack of a radial calibration under a
+8.6K size, the program's spans under a capture (operator records with no
+device-side copy, holding the hand kernels launched inside them), the
+two-layer lens stack of a radial calibration under a
 classic layer with a half plate warped through it, the fused undistort
 stack kernel bit-equal to a launch a layer, and the no-fallback rule.
 
@@ -494,7 +496,7 @@ def test_stmap_spans_and_counters_on_cuda():
     is a "stmap.call" holding its "stmap.launch": one counted pack a call,
     or a stack, whether the lens is held on the card or in CPU tensors
     (handed over by value), and no host read.  Each counts its map
-    launches; a warp is one "warp.call"."""
+    launches; a warp is one "warp.call" holding its "warp.launch"."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from torch.profiler import ProfilerActivity, profile
@@ -540,7 +542,7 @@ def test_stmap_spans_and_counters_on_cuda():
     assert counters["host_reads"] == before["host_reads"]
     image = torch.rand(32, 64, 4, device="cuda")
     _, ranges = captured(lambda: t_warp.warp_image(image, st_map))
-    assert ranges == [("warp.call", None)]
+    assert ranges == [("warp.call", None), ("warp.launch", "warp.call")]
     assert counters["stmap.launches"] == before["stmap.launches"] + 4
     assert counters["stmap_layer.launches"] == (
         before["stmap_layer.launches"] + 4)
@@ -844,9 +846,10 @@ def test_warp_kernel_refuses_every_other_dtype_mix():
 
 @pytest.mark.cuda
 def test_warp_kernel_time_lies_under_the_callers_range():
-    """The launch is an operator of its own under a capture
-    (profiler.kernel_op), so the kernel's device time counts in the
-    caller's record_function around warp_image, as an eager op's would."""
+    """Under a capture the launch is the operator record "warp.launch"
+    inside "warp.call" (utils/profiler.py::span), so the kernel's device
+    time counts in the caller's record_function around warp_image, as an
+    eager op's would."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU")
     from torch.autograd import DeviceType
@@ -867,13 +870,72 @@ def test_warp_kernel_time_lies_under_the_callers_range():
     events = prof.events()
     host = [e for e in events if e.device_type == DeviceType.CPU]
     (caller,) = [e for e in host if e.name == "caller"]
-    ops = [e for e in host if e.name == "mmsolver_warp"]
+    ops = [e for e in host if e.name == "mmsolver.warp.launch"]
     kernels = [e.time_range.elapsed_us() for e in events
                if e.device_type == DeviceType.CUDA
                and "warp_kernel" in e.name]
     assert len(ops) == len(kernels) == 2
-    assert ops[1].cpu_parent.id == caller.id and caller.device_time_total > 0
+    call = ops[1].cpu_parent
+    assert call.name == "mmsolver.warp.call" and not call.is_user_annotation
+    assert call.cpu_parent.id == caller.id and caller.device_time_total > 0
     assert caller.device_time_total == pytest.approx(kernels[1])
+
+
+@pytest.mark.cuda
+def test_program_spans_have_no_device_copy_and_hold_their_kernels():
+    """Under a capture with tracing() off, a frame of the export (a lens
+    stack's map, a single lens's map, a half-plate warp) leaves no CUDA
+    event named "mmsolver.*": the spans are operator records, not user
+    ranges.  Every ST-map and pack kernel is put down to "stmap.launch",
+    every warp kernel to "warp.launch"."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mayamatchmovesolver_torch.ops import warp as t_warp
+
+    model, fb = torch_model("classic")
+    radial, _ = torch_model("radial_deg4")
+    image = torch.rand(32, 64, 4, device="cuda").half()
+    t_warp.warp_image(image, t_stmap.stmap(model, fb, 64, 32,
+                                           device="cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for direction in ("undistort", "distort"):
+            st_map = t_stmap.stmap([model, radial], fb, 64, 32, direction,
+                                   device="cuda")
+            t_warp.warp_image(image, st_map)
+        t_warp.warp_image(image, t_stmap.stmap(model, fb, 64, 32,
+                                               device="cuda"))
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert not [n for n in device if n.startswith("mmsolver.")]
+    ours = [n for n in device if "stmap" in n or "pack_params" in n
+            or "warp_kernel" in n]
+    held = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        # The innermost span around the event the kernel is put down to
+        # (an op, its runtime call, or the profiler's own event that a
+        # capture's first launch lends its kernel to).
+        span = e
+        while span is not None and not span.name.startswith("mmsolver."):
+            span = span.cpu_parent
+        name = span.name if span is not None else e.name
+        held.setdefault(name, set()).update(k.name for k in e.kernels)
+    assert sorted(held) == ["mmsolver.stmap.launch", "mmsolver.warp.launch"]
+    assert all("warp_kernel" in n for n in held["mmsolver.warp.launch"])
+    assert not [n for n in held["mmsolver.stmap.launch"]
+                if "warp_kernel" in n]
+    # The pack kernel, the fused undistort stack, the distort layer from
+    # the pixel and from the map, and one warp instantiation.
+    assert len(held["mmsolver.stmap.launch"]) == 4
+    assert set(ours) == held["mmsolver.stmap.launch"] | held[
+        "mmsolver.warp.launch"]
 
 
 @pytest.mark.cuda

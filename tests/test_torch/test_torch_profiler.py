@@ -10,15 +10,20 @@ without it (after
 tests/test_solver/test_interrupt.py::test_profile_dir_captures_trace).
 
 The port's own spans and counters have no counterpart in the reference:
-off, a span is the one shared no-op context and a capture holds none;
-on, the ST-map wrapper's and the warp's spans nest as named, and the
-wrapper counts one host read a call that fetches lens values from
-another device (a lens of Python numbers or CPU tensors is handed over
-by value, with no read).  Without a card a CUDA call of the wrapper
+off (no running capture, no tracing()), a span is the one shared no-op
+context, returned after the flag test and one profiler-state check, and
+logs nothing; under a capture, whatever tracing() says, spans are
+operator records (not user ranges), nested as named and logged; under
+tracing() alone they are logged only, on time.perf_counter(), in a
+bounded log.  The ST-map wrapper's and the warp's spans nest as named,
+and the wrapper counts one host read a call that fetches lens values
+from another device (a lens of Python numbers or CPU tensors is handed
+over by value, with no read).  Without a card a CUDA call of the wrapper
 raises at the output's allocation, inside its launch span: the spans up
 to there are in the capture, and no launch is counted.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -109,17 +114,119 @@ def test_xla_trace_holds_the_programs_spans(tmp_path):
 
 
 def test_kernel_op_is_an_operator_under_a_capture_only():
-    """Off a capture kernel_op is the shared no-op; under one, whatever
-    tracing() says, it is an operator record (not a user range) nested
-    in the ranges around it, as an aten op is."""
-    assert t_profiler.kernel_op("mmsolver_warp") is t_profiler.span("x")
+    """The warp's launch span, the operator its hand kernel is put down
+    to: off a capture the shared no-op; under one, whatever tracing()
+    says, an operator record (not a user range) nested in the ranges
+    around it, as an aten op is."""
+    assert t_profiler.span("warp.launch") is t_profiler._OFF
+    for on in (False, True):
+        with contextlib.ExitStack() as stack:
+            if on:
+                stack.enter_context(t_profiler.tracing())
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                with torch.profiler.record_function("caller"):
+                    with t_profiler.span("warp.launch"):
+                        pass
+        (op,) = [e for e in prof.events()
+                 if e.name == "mmsolver.warp.launch"]
+        assert op.cpu_parent.name == "caller" and not op.is_user_annotation
+    assert t_profiler.span("warp.launch") is t_profiler._OFF
+
+
+def test_span_off_is_the_shared_no_op_after_two_checks(monkeypatch):
+    """Off, span() makes one profiler-state check (torch's own
+    _profiler_enabled) besides the flag test and returns the shared
+    no-op, which logs nothing; with the check true it is a record."""
+    assert t_profiler._profiling is torch.autograd._profiler_enabled
+    assert not t_profiler._profiling()
+    calls = []
+
+    def state(value):
+        def check():
+            calls.append(value)
+            return value
+        return check
+
+    monkeypatch.setattr(t_profiler, "_profiling", state(False))
+    before = t_profiler.span_log()
+    off = t_profiler.span("warp.call")
+    assert off is t_profiler._OFF and calls == [False]
+    with off:
+        pass
+    assert t_profiler.span_log() == before
+    monkeypatch.setattr(t_profiler, "_profiling", state(True))
+    on = t_profiler.span("warp.call")
+    assert calls == [False, True] and on is not t_profiler._OFF
+    assert on.record is not None
+
+
+def test_spans_under_a_bare_capture_are_operator_records_and_logged():
+    """A capture with tracing() off: the wrapper's and the warp's spans
+    are operator records nested as named, and each is logged inside the
+    request that made it, nested as in the capture."""
+    model, fb = torch_model("classic")
+    start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with torch.profiler.record_function("caller"):
-            with t_profiler.kernel_op("mmsolver_warp"):
+        _stmap_cuda(model, fb)
+        t_warp.warp_image(torch.rand(6, 8, 4), torch.rand(6, 8, 4))
+    end = time.perf_counter()
+    records = [e for e in prof.events() if e.name.startswith("mmsolver.")]
+    assert records and not any(e.is_user_annotation for e in records)
+    want = [("stmap.call", None), ("stmap.launch", "stmap.call"),
+            ("warp.call", None)]
+    if torch.cuda.is_available():
+        want.append(("warp.launch", "warp.call"))
+    assert program_ranges(prof.events()) == want
+    logged = [e for e in t_profiler.span_log() if e[1] >= start]
+    assert all(e[2] <= end for e in logged)
+    logged.sort(key=lambda e: (e[1], -e[2]))
+    assert [e[0] for e in logged] == [name for name, _ in want]
+    call, launch = logged[0], logged[1]
+    assert call[1] <= launch[1] <= launch[2] <= call[2] <= logged[2][1]
+
+
+def test_tracing_without_a_capture_logs_only():
+    """tracing() with no capture: a span records nothing in any profiler
+    and appends its name and times to the log."""
+    start = time.perf_counter()
+    with t_profiler.tracing():
+        assert t_profiler.span("warp.call").record is None
+        t_warp.warp_image(torch.rand(6, 8, 4), torch.rand(6, 8, 4))
+    logged = [e for e in t_profiler.span_log() if e[1] >= start]
+    assert [e[0] for e in logged] == ["warp.call"]
+
+
+def test_span_log_times_lie_inside_a_perf_counter_bracket():
+    """A span's logged start and end lie inside a time.perf_counter()
+    bracket around it, a nested span's inside its parent's; a span left
+    by an exception is logged too, and the exception passes."""
+    with t_profiler.tracing():
+        before = time.perf_counter()
+        with t_profiler.span("outer"):
+            with t_profiler.span("inner"):
                 pass
-    (op,) = [e for e in prof.events() if e.name == "mmsolver_warp"]
-    assert op.cpu_parent.name == "caller" and not op.is_user_annotation
-    assert t_profiler.kernel_op("mmsolver_warp") is t_profiler.span("x")
+            with pytest.raises(ValueError):
+                with t_profiler.span("raised"):
+                    raise ValueError("passes through")
+        after = time.perf_counter()
+    inner, raised, outer = t_profiler.span_log()[-3:]
+    assert [inner[0], raised[0], outer[0]] == ["inner", "raised", "outer"]
+    assert before <= outer[1] <= inner[1] <= inner[2] <= raised[1]
+    assert raised[1] <= raised[2] <= outer[2] <= after
+
+
+def test_span_log_is_bounded():
+    """The log keeps its last SPAN_LOG_LENGTH (at least 65,536) spans
+    and drops the oldest."""
+    assert t_profiler.SPAN_LOG_LENGTH >= 65536
+    with t_profiler.tracing():
+        for i in range(t_profiler.SPAN_LOG_LENGTH + 3):
+            with t_profiler.span("n%d" % i):
+                pass
+    logged = t_profiler.span_log()
+    assert len(logged) == t_profiler.SPAN_LOG_LENGTH
+    assert logged[0][0] == "n3"
+    assert logged[-1][0] == "n%d" % (t_profiler.SPAN_LOG_LENGTH + 2)
 
 
 def test_tracing_restores_the_state_before():
@@ -147,14 +254,16 @@ def _stmap_cuda(model, fb, **kw):
 
 
 def test_spans_off_leave_no_range_yet_count():
+    """With no capture running and tracing() off, the calls log no span
+    and open no range, and the counters count."""
     model, fb = torch_model("classic")
     counters = t_profiler.counters
     reads = counters["host_reads"]
-    ranges = _captured(lambda: (
-        t_warp.warp_image(torch.rand(6, 8, 4), torch.rand(6, 8, 4)),
-        t_stmap._host_values([fb.film_back_width_cm, model.distortion]),
-        _stmap_cuda(model, fb)))
-    assert ranges == []
+    before = t_profiler.span_log()
+    t_warp.warp_image(torch.rand(6, 8, 4), torch.rand(6, 8, 4))
+    t_stmap._host_values([fb.film_back_width_cm, model.distortion])
+    _stmap_cuda(model, fb)
+    assert t_profiler.span_log() == before
     assert counters["host_reads"] == reads + 1
 
 
